@@ -1,0 +1,37 @@
+"""babble-tpu's consensus math in PyTorch, for one NVIDIA H100.
+
+A port of the JAX package ``babble_tpu`` (which stays the reference):
+the same dense struct-of-arrays DAG state and the same batch consensus
+step — coordinate ingest, round assignment, fame, order — as torch
+tensor code, with the JAX package's one Pallas TPU kernel (the
+last-ancestor walk) rewritten by hand in CUDA for Hopper
+(``csrc/la_walk.cu``).  It imports torch, numpy and the standard library
+only.
+
+Entry points take an explicit ``device`` ("cuda" by default); pass
+``device="cpu"`` to run every stage in plain torch on the CPU.
+
+    from babble_tpu_torch import (
+        DagConfig, batch_from_arrays, consensus_step, init_state,
+        random_gossip_arrays,
+    )
+
+    dag = random_gossip_arrays(64, 65536, seed=7)
+    cfg = DagConfig(n=64, e_cap=65536, s_cap=dag.max_chain + 1, r_cap=512)
+    out = consensus_step(cfg, "walk", init_state(cfg), batch_from_arrays(dag))
+"""
+
+from .ops.ingest import EventBatch
+from .ops.state import (
+    DagConfig, DagState, assert_consensus_parity, init_state,
+    state_from_numpy, state_to_numpy,
+)
+from .sim.arrays import ArrayDag, batch_from_arrays, random_gossip_arrays
+from .step import consensus_step
+
+__all__ = [
+    "ArrayDag", "DagConfig", "DagState", "EventBatch",
+    "assert_consensus_parity", "batch_from_arrays", "consensus_step",
+    "init_state", "random_gossip_arrays", "state_from_numpy",
+    "state_to_numpy",
+]

@@ -1,0 +1,251 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``babble_tpu_torch``).
+
+Run from the root of a checkout, on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; no phase swallows an exception):
+
+1. device — print the card's name and power limit (nvidia-smi); no CUDA
+   device is a failure.
+2. build  — compile every kernel of the main path from ``csrc/`` (one
+   nvcc per source, all started together) and print ``-Xptxas -v``.
+3. kernel — each kernel's wrapper on the card against its plain torch
+   version on the same card inputs, at the main path's shapes (the
+   64 x 65,536 slice DAG) and on one small DAG; exact equality (the
+   outputs are integers); kernel time by CUDA events.
+4. slice  — the batch consensus step ``consensus_step(cfg, "walk", ...)``
+   at n=64, e_cap=65,536, s_cap=max_chain+1, r_cap=512 on the gossip DAG
+   of seed 7 (the bench's 64-node config).  The launch counters are set
+   to 0 just before the run and read just after; every kernel must have
+   launched.  The same step in mode "fast" (la by the plain level scan)
+   must agree bit for bit on every consensus field, and the run must
+   reproduce the JAX package's counts for this DAG: max_round 93, lcr
+   91, 63,340 events ordered.
+
+It prints the card line, then one JSON line describing every kernel,
+then ``{"ok": true, "device": {...}}`` as the last line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+# the JAX package's counts for random_gossip_arrays(64, 65536, seed=7)
+# under consensus_step_impl(cfg, "walk"), from a CPU run
+SLICE = dict(n=64, e=65536, seed=7, r_cap=512)
+EXPECT = dict(max_round=93, lcr=91, ordered=63340)
+SMALL = dict(n=8, e=1024, seed=13)
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events,
+    after one warm-up)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def walk_inputs(n: int, e: int, seed: int, dev):
+    """The slice DAG written into a fresh state, as the walk reads it."""
+    from babble_tpu_torch import (
+        DagConfig, batch_from_arrays, init_state, random_gossip_arrays,
+    )
+    from babble_tpu_torch.ops.ingest import _write_batch_fields
+
+    dag = random_gossip_arrays(n, e, seed=seed)
+    cfg = DagConfig(n=n, e_cap=e, s_cap=max(64, dag.max_chain + 1), r_cap=64)
+    st = _write_batch_fields(init_state(cfg, device=dev), cfg,
+                             batch_from_arrays(dag, device=dev))
+    return cfg, (st.sp, st.op, st.creator, st.seq, st.n_events,
+                 cfg.e_cap, cfg.n)
+
+
+def phase_kernel(dev) -> dict:
+    """la_walk against la_walk_plain on the card; returns its JSON row
+    (launches filled in by the slice phase)."""
+    import torch
+
+    from babble_tpu_torch.ops.pallas_ingest import la_walk, la_walk_plain
+
+    row = None
+    for shape in (SMALL, SLICE):
+        cfg, args = walk_inputs(shape["n"], shape["e"], shape["seed"], dev)
+        got = la_walk(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = la_walk_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got.long() - want.long()).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"la_walk != la_walk_plain at n={cfg.n} e={cfg.e_cap}: "
+                f"{int((got != want).sum())} entries differ"
+            )
+        ms = cuda_ms(lambda: la_walk(*args), reps=10)
+        print(f"[kernel] la_walk n={cfg.n} e_cap={cfg.e_cap}: exact; "
+              f"{ms:.3f} ms (CUDA events, mean of 10); "
+              f"plain {plain_ms:.1f} ms", flush=True)
+        if shape is SLICE:
+            e1, n = cfg.e_cap + 1, cfg.n
+            n_ev = int(args[4].item())
+            nbytes = 4 * e1 * 4 + 4 + e1 * n * 4    # 4 index arrays + n_events in, la out
+            nops = 2 * n_ev * n                     # one max and one select per cell
+            row = {
+                "name": "la_walk", "route": "cuda",
+                "source": "babble_tpu_torch/csrc/la_walk.cu",
+                "replaces": "babble_tpu/ops/pallas_ingest.py:118",
+                "launches": 0, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(nbytes / PEAK_BYTES_S,
+                                nops / PEAK_OPS_S) * 1e3,
+                "bound_by": ("bytes" if nbytes / PEAK_BYTES_S
+                             >= nops / PEAK_OPS_S else "operations"),
+                "library_ms": None,
+            }
+    return row
+
+
+def phase_slice(dev, card: str):
+    """Drive the main path; returns (la_walk's launch count in that run,
+    the run's wall ms)."""
+    import torch
+
+    from babble_tpu_torch import (
+        DagConfig, assert_consensus_parity, batch_from_arrays,
+        consensus_step, init_state, random_gossip_arrays,
+    )
+    from babble_tpu_torch.ops import fame, ingest, order
+    from babble_tpu_torch.ops.pallas_ingest import la_walk, walk_supported
+
+    t0 = time.perf_counter()
+    dag = random_gossip_arrays(SLICE["n"], SLICE["e"], seed=SLICE["seed"])
+    cfg = DagConfig(n=SLICE["n"], e_cap=SLICE["e"],
+                    s_cap=dag.max_chain + 1, r_cap=SLICE["r_cap"])
+    batch = batch_from_arrays(dag, device=dev)
+    print(f"[slice] {cfg}; {dag.n_levels} levels; host DAG build "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not walk_supported(cfg.n, cfg.e_cap, cfg.s_cap):
+        raise AssertionError("walk mode not supported at the slice config")
+
+    # warm-up run (first-use costs of torch's own kernels), not counted
+    consensus_step(cfg, "walk", init_state(cfg, device=dev), batch)
+    torch.cuda.synchronize()
+
+    state0 = init_state(cfg, device=dev)
+    la_walk.launches = 0
+    box = {}
+    step_ms = wall_ms(lambda: box.setdefault(
+        "out", consensus_step(cfg, "walk", state0, batch)))
+    launches = la_walk.launches
+    out = box["out"]
+    if launches < 1:
+        raise AssertionError("the walk step never launched la_walk")
+
+    # per-phase wall times of the same step (synchronised between phases)
+    st = init_state(cfg, device=dev)
+    phases = {}
+    for name, fn in (
+        ("ingest_coords", lambda s: ingest.ingest_coords_impl(cfg, s, "walk", batch)),
+        ("ingest_rounds", lambda s: ingest.ingest_rounds_impl(cfg, s, "walk", batch)),
+        ("fame", lambda s: fame.decide_fame_auto_impl(cfg, s)),
+        ("order", lambda s: order.decide_order_impl(cfg, s)),
+    ):
+        box = {}
+        phases[name] = wall_ms(lambda: box.setdefault("s", fn(st)))
+        st = box["s"]
+    assert_consensus_parity(out, st, cfg.e_cap, "phased-vs-step")
+
+    fast = consensus_step(cfg, "fast", init_state(cfg, device=dev), batch)
+    torch.cuda.synchronize()
+    assert_consensus_parity(fast, out, cfg.e_cap, "walk-vs-fast on card")
+
+    got = dict(
+        max_round=int(out.max_round.item()), lcr=int(out.lcr.item()),
+        ordered=int((out.rr[: cfg.e_cap] >= 0).sum().item()),
+    )
+    if got != EXPECT:
+        raise AssertionError(f"slice counts {got} != JAX package's {EXPECT}")
+    finite = bool(torch.all(out.cts[: cfg.e_cap][out.rr[: cfg.e_cap] >= 0] > 0))
+    if not finite:
+        raise AssertionError("an ordered event has no consensus timestamp")
+    print(f"[slice] walk step {step_ms:.1f} ms wall ({card}); "
+          f"la_walk launches {launches}; counts {got}; walk == fast",
+          flush=True)
+    print("[slice] phases (ms wall): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
+    return launches, step_ms
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from babble_tpu_torch import cuda_build
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"[device] {card}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    logs = cuda_build.build(["la_walk"])
+    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, text in logs.items():
+        print(f"[build] {name}:\n{text.strip()}", flush=True)
+
+    row = phase_kernel(dev)
+    launches, step_ms = phase_slice(dev, card)
+    row["launches"] = launches
+    print(f"[slice] la_walk share of the walk step: "
+          f"{row['ms'] * launches / step_ms:.4f}", flush=True)
+
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
