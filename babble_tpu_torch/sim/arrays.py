@@ -112,6 +112,40 @@ def random_gossip_arrays(
     return ArrayDag(n, sp, op, creator, seq, ts, mbit, levels, seed)
 
 
+def random_walk_arrays(n: int, e_cap: int, seed: int = 0, seq_base=0,
+                       n_events=None, topological: bool = True):
+    """The walk's ``[E+1]`` int32 inputs (``sp``, ``op``, ``creator``,
+    ``seq``) for ``n_events`` events (default ``e_cap``), made with numpy
+    from ``seed``; any ``n >= 1``, unlike the gossip generator.  Creators
+    are uniform; ``sp`` is the creator's previous event (-1 for its
+    first); ``op`` is a uniform earlier slot (-1 for slot 0); creator
+    ``c``'s seqs count up from ``seq_base`` (an int, or one per creator).
+    With ``topological=False``, ``op`` is any index in
+    ``[-3, e_cap + 3]``, forward references and out-of-range ones
+    included.  Rows past the events hold sp = op = -1, creator n, seq -1."""
+    rng = np.random.default_rng(seed)
+    k = e_cap if n_events is None else n_events
+    base = np.broadcast_to(np.asarray(seq_base, np.int64), (n,))
+    creator = rng.integers(0, n, size=k)
+    sp = np.full(e_cap + 1, -1, np.int32)
+    op = np.full(e_cap + 1, -1, np.int32)
+    cr = np.full(e_cap + 1, n, np.int32)
+    seq = np.full(e_cap + 1, -1, np.int32)
+    head = np.full(n, -1, np.int64)
+    count = np.zeros(n, np.int64)
+    for x, c in enumerate(creator.tolist()):
+        sp[x] = head[c]
+        seq[x] = base[c] + count[c]
+        head[c] = x
+        count[c] += 1
+    cr[:k] = creator
+    if not topological:
+        op[:k] = rng.integers(-3, e_cap + 4, size=k)
+    elif k > 1:
+        op[1:k] = (rng.random(k - 1) * np.arange(1, k)).astype(np.int32)
+    return dict(sp=sp, op=op, creator=cr, seq=seq)
+
+
 def build_schedule(levels: np.ndarray, n_levels: int = 0) -> np.ndarray:
     """Group indices by level into an i32[T, B] table, -1 padded (the
     ingest schedule; stable order within a level)."""

@@ -10,11 +10,20 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 1. device — print the card's name and power limit (nvidia-smi); no CUDA
    device is a failure.
 2. build  — compile every kernel of the main path from ``csrc/`` (one
-   nvcc per source, all started together) and print ``-Xptxas -v``.
+   nvcc per source, all started together) and print ``-Xptxas -v``,
+   then each kernel's registers and shared memory as the runtime sees
+   them (la_walk: static staging plus the dynamic int16 column).
 3. kernel — each kernel's wrapper on the card against its plain torch
    version on the same card inputs, at the main path's shapes (the
-   64 x 65,536 slice DAG) and on one small DAG; exact equality (the
-   outputs are integers); kernel time by CUDA events.
+   64 x 65,536 slice DAG), on one small DAG, at the largest size the
+   walk gate admits (64 x 94,661) and on seqs that wrap int16; exact
+   equality (the outputs are integers).  Kernel time by CUDA events:
+   ``ms`` warm (mean of 10 back-to-back launches, the first one's host
+   enqueue inside the span, as in earlier versions of this script),
+   ``ms_device`` the same with the host enqueued ahead behind a device
+   sleep (device time alone), ``ms_cold`` with L2 cold (a 256 MB scratch
+   write before each launch); and the kernel's own clock per block:
+   walk, epilogue and the walking warp's rounds.
 4. slice  — the batch consensus step ``consensus_step(cfg, "walk", ...)``
    at n=64, e_cap=65,536, s_cap=max_chain+1, r_cap=512 on the gossip DAG
    of seed 7 (the bench's 64-node config).  The launch counters are set
@@ -40,6 +49,12 @@ import time
 SLICE = dict(n=64, e=65536, seed=7, r_cap=512)
 EXPECT = dict(max_round=93, lcr=91, ordered=63340)
 SMALL = dict(n=8, e=1024, seed=13)
+# synthetic walk inputs (sim.arrays.random_walk_arrays): the walk gate's
+# largest e_cap at n=64, and seqs across 32,767 and 65,536
+GATE = dict(n=64, e=94661, seed=7, seq_base=0)
+WRAP = dict(n=8, e=4096, seed=3,
+            seq_base=[32700, 65500, 0, 40000, 70000, 131000, 5, 65536])
+SCRATCH_BYTES = 256 << 20    # > 5x the 50 MB L2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
 PEAK_BYTES_S = 3.35e12
@@ -55,12 +70,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events,
-    after one warm-up)."""
+def cuda_ms(fn, reps: int, ahead: bool = False) -> float:
+    """Mean time of ``fn()`` over ``reps`` launches (CUDA events, after
+    one warm-up).  The first launch's host enqueue falls inside the
+    span; with ``ahead`` a device sleep first lets the host enqueue all
+    of them before the card starts, so the span is device time alone."""
     import torch
 
     fn()
+    if ahead:
+        torch.cuda._sleep(1_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -69,6 +88,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int) -> float:
+    """Mean time of ``fn()`` with L2 cold: a ``SCRATCH_BYTES`` write just
+    before each launch, CUDA events around the launch alone (its host
+    enqueue may fall inside the span, as in ``cuda_ms``)."""
+    import torch
+
+    scratch = torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    marks = []
+    for i in range(reps):
+        scratch.fill_(i & 0xFF)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / reps
 
 
 def wall_ms(fn) -> float:
@@ -92,8 +132,39 @@ def walk_inputs(n: int, e: int, seed: int, dev):
     cfg = DagConfig(n=n, e_cap=e, s_cap=max(64, dag.max_chain + 1), r_cap=64)
     st = _write_batch_fields(init_state(cfg, device=dev), cfg,
                              batch_from_arrays(dag, device=dev))
-    return cfg, (st.sp, st.op, st.creator, st.seq, st.n_events,
-                 cfg.e_cap, cfg.n)
+    return (st.sp, st.op, st.creator, st.seq, st.n_events, cfg.e_cap, cfg.n)
+
+
+def synthetic_inputs(shape: dict, dev):
+    """Synthetic walk inputs (any n, seqs from ``seq_base``) on the card."""
+    import torch
+
+    from babble_tpu_torch.sim.arrays import random_walk_arrays
+
+    a = random_walk_arrays(shape["n"], shape["e"], seed=shape["seed"],
+                           seq_base=shape["seq_base"])
+    t = [torch.from_numpy(a[k]).to(dev)
+         for k in ("sp", "op", "creator", "seq")]
+    ne = torch.tensor(shape["e"], dtype=torch.int32, device=dev)
+    return (*t, ne, shape["e"], shape["n"])
+
+
+def kernel_phases(args) -> str:
+    """One profiled launch: per-block walk and epilogue time by the
+    kernel's own clock (globaltimer), and the walking warp's rounds."""
+    from babble_tpu_torch.ops.pallas_ingest import la_walk_phases
+
+    _, prof = la_walk_phases(*args)
+    start, walk_end, end, rounds = (prof[:, i].double() for i in range(4))
+    span = (end.max() - start.min()) / 1e6
+    walk = ((walk_end - start) / 1e6).mean()
+    epi = ((end - walk_end) / 1e6).mean()
+    return (f"span {span:.4f} ms (first block start to last block end), "
+            f"walk {walk:.4f} ms, epilogue {epi:.4f} ms (means over "
+            f"blocks; epilogue share {epi / span:.3f}), block start skew "
+            f"{(start.max() - start.min()) / 1e6:.4f} ms, rounds "
+            f"{int(rounds.min())}..{int(rounds.max())} "
+            f"(mean {rounds.mean():.1f})")
 
 
 def phase_kernel(dev) -> dict:
@@ -104,8 +175,13 @@ def phase_kernel(dev) -> dict:
     from babble_tpu_torch.ops.pallas_ingest import la_walk, la_walk_plain
 
     row = None
-    for shape in (SMALL, SLICE):
-        cfg, args = walk_inputs(shape["n"], shape["e"], shape["seed"], dev)
+    for name, shape in (("small", SMALL), ("slice", SLICE),
+                        ("gate", GATE), ("wrap", WRAP)):
+        if "seq_base" in shape:
+            args = synthetic_inputs(shape, dev)
+        else:
+            args = walk_inputs(shape["n"], shape["e"], shape["seed"], dev)
+        e_cap, n = args[5], args[6]
         got = la_walk(*args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -115,15 +191,20 @@ def phase_kernel(dev) -> dict:
         err = int((got.long() - want.long()).abs().max().item())
         if not torch.equal(got, want):
             raise AssertionError(
-                f"la_walk != la_walk_plain at n={cfg.n} e={cfg.e_cap}: "
+                f"la_walk != la_walk_plain ({name}, n={n} e={e_cap}): "
                 f"{int((got != want).sum())} entries differ"
             )
         ms = cuda_ms(lambda: la_walk(*args), reps=10)
-        print(f"[kernel] la_walk n={cfg.n} e_cap={cfg.e_cap}: exact; "
-              f"{ms:.3f} ms (CUDA events, mean of 10); "
-              f"plain {plain_ms:.1f} ms", flush=True)
-        if shape is SLICE:
-            e1, n = cfg.e_cap + 1, cfg.n
+        ms_device = cuda_ms(lambda: la_walk(*args), reps=10, ahead=True)
+        ms_cold = cuda_ms_cold(lambda: la_walk(*args), reps=10)
+        print(f"[kernel] la_walk {name} n={n} e_cap={e_cap}: exact; "
+              f"{ms:.4f} ms warm, {ms_device:.4f} ms warm device only "
+              f"(host enqueued ahead), {ms_cold:.4f} ms L2 cold (CUDA "
+              f"events, means of 10); plain {plain_ms:.1f} ms", flush=True)
+        print(f"[kernel] la_walk {name} clock: {kernel_phases(args)}",
+              flush=True)
+        if name == "slice":
+            e1 = e_cap + 1
             n_ev = int(args[4].item())
             nbytes = 4 * e1 * 4 + 4 + e1 * n * 4    # 4 index arrays + n_events in, la out
             nops = 2 * n_ev * n                     # one max and one select per cell
@@ -132,7 +213,8 @@ def phase_kernel(dev) -> dict:
                 "source": "babble_tpu_torch/csrc/la_walk.cu",
                 "replaces": "babble_tpu/ops/pallas_ingest.py:118",
                 "launches": 0, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms,
+                "ms": ms, "ms_device": ms_device, "ms_cold": ms_cold,
+                "plain_ms": plain_ms,
                 "bound_ms": max(nbytes / PEAK_BYTES_S,
                                 nops / PEAK_OPS_S) * 1e3,
                 "bound_by": ("bytes" if nbytes / PEAK_BYTES_S
@@ -140,6 +222,25 @@ def phase_kernel(dev) -> dict:
                 "library_ms": None,
             }
     return row
+
+
+def kernel_resources() -> None:
+    """What the runtime reports for each compiled kernel, and la_walk's
+    shared memory at the main path's size and at the gate's edge."""
+    from babble_tpu_torch.ops import pallas_ingest as pi
+
+    if not pi.walk_supported(GATE["n"], GATE["e"], 64) or \
+            pi.walk_supported(GATE["n"], GATE["e"] + 1, 64):
+        raise AssertionError("GATE is not the walk gate's edge")
+    a = pi.kernel_attributes(SLICE["e"])
+    gate = pi.kernel_attributes(GATE["e"])
+    static = a["static_smem"]
+    print(f"[build] la_walk_kernel: {a['registers']} registers/thread, "
+          f"{a['local_bytes']} B local/thread, {a['max_threads']} "
+          f"threads/block max, {static} B static shared + the int16 column "
+          f"dynamic: {static + a['dynamic_smem']} B at e_cap "
+          f"{SLICE['e']}, {static + gate['dynamic_smem']} B at the gate's "
+          f"edge {GATE['e']} (of 232,448)", flush=True)
 
 
 def phase_slice(dev, card: str):
@@ -231,6 +332,7 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in logs.items():
         print(f"[build] {name}:\n{text.strip()}", flush=True)
+    kernel_resources()
 
     row = phase_kernel(dev)
     launches, step_ms = phase_slice(dev, card)

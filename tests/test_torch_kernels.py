@@ -15,7 +15,19 @@ from babble_tpu_torch import (
     init_state, random_gossip_arrays,
 )
 from babble_tpu_torch.ops.ingest import _write_batch_fields
-from babble_tpu_torch.ops.pallas_ingest import la_walk, la_walk_plain
+from babble_tpu_torch.ops.pallas_ingest import (
+    kernel_attributes, la_walk, la_walk_phases, la_walk_plain,
+    walk_supported,
+)
+from babble_tpu_torch.sim.arrays import random_walk_arrays
+
+# csrc/la_walk.cu resolves slot order in windows of this many slots (kW)
+WINDOW = 1024
+# the walk gate's largest e_cap, and the shared memory a Hopper block may use
+GATE_E_CAP = 94661
+SMEM_OPTIN = 232_448
+# seqs across 32,767 (int16 wrap) and 65,536 (the TPU kernel's lane spill)
+WRAPPED = [32700, 65500, 0, 40000, 70000, 131000, 5, 65536]
 
 
 def _need_card():
@@ -33,21 +45,82 @@ def _walk_inputs(n, e, seed, dev, n_live=None):
     return (st.sp, st.op, st.creator, st.seq, ne, cfg.e_cap, cfg.n)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,e,seed,n_live", [
-    (2, 64, 0, None), (4, 300, 1, None), (8, 1024, 13, 700),
-    (33, 5000, 2, None), (64, 8192, 7, None),
-])
-def test_la_walk_kernel_matches_plain(n, e, seed, n_live):
-    _need_card()
-    args = _walk_inputs(n, e, seed, torch.device("cuda"), n_live)
+def _synthetic_inputs(n, e, seed, dev, n_live=None, **kw):
+    a = random_walk_arrays(n, e, seed=seed, **kw)
+    t = [torch.from_numpy(a[k]).to(dev) for k in ("sp", "op", "creator", "seq")]
+    ne = torch.tensor(e if n_live is None else n_live, dtype=torch.int32,
+                      device=dev)
+    return (*t, ne, e, n)
+
+
+def _check_kernel(args):
     before = la_walk.launches
     got = la_walk(*args)
     torch.cuda.synchronize()
     assert la_walk.launches == before + 1
     want = la_walk_plain(*args)
+    e, n = args[5], args[6]
     assert got.dtype == torch.int32 and got.shape == (e + 1, n)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,seed,n_live", [
+    (2, 64, 0, None), (4, 300, 1, None), (8, 1024, 13, 700),
+    (33, 5000, 2, None), (64, 8192, 7, None),
+    (4, WINDOW - 1, 3, None), (4, WINDOW, 3, None), (4, WINDOW + 1, 3, None),
+    (8, 1024, 13, 0),
+])
+def test_la_walk_kernel_matches_plain(n, e, seed, n_live):
+    _need_card()
+    _check_kernel(_walk_inputs(n, e, seed, torch.device("cuda"), n_live))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,kw", [
+    (1, 3000, {}),
+    (64, 4000, {}),
+    (8, 4096, dict(seq_base=WRAPPED)),
+    (3, 2000, dict(seq_base=2**31 - 1000)),
+    (64, GATE_E_CAP, {}),
+    (5, 3000, dict(topological=False)),
+    (64, 4000, dict(topological=False)),
+])
+def test_la_walk_kernel_matches_plain_synthetic(n, e, kw):
+    """n = 1 and n = 64, wrapped seqs, the walk gate's largest e_cap, and
+    input that is not topological (which must return, not hang)."""
+    _need_card()
+    _check_kernel(_synthetic_inputs(n, e, 5, torch.device("cuda"), **kw))
+
+
+@pytest.mark.gpu
+def test_la_walk_kernel_limits():
+    _need_card()
+    attrs = kernel_attributes(GATE_E_CAP)
+    assert attrs["local_bytes"] == 0, "la_walk_kernel spills to local memory"
+    assert attrs["static_smem"] + attrs["dynamic_smem"] <= SMEM_OPTIN
+    assert walk_supported(64, GATE_E_CAP, 64)
+    assert not walk_supported(64, GATE_E_CAP + 1, 64)
+    args = list(_synthetic_inputs(4, GATE_E_CAP + 1, 0,
+                                  torch.device("cuda"), n_live=10))
+    with pytest.raises(ValueError, match="walk mode admits"):
+        la_walk(*args)
+
+
+@pytest.mark.gpu
+def test_la_walk_phases_reads_the_kernel_clock():
+    _need_card()
+    args = _synthetic_inputs(16, 5000, 1, torch.device("cuda"))
+    la, prof = la_walk_phases(*args)
+    assert torch.equal(la, la_walk_plain(*args))
+    assert prof.shape == (16, 4)
+    assert bool((prof[:, 1] >= prof[:, 0]).all())
+    assert bool((prof[:, 2] >= prof[:, 1]).all())
+    # a window takes at least its 32 lanes' share of slots in rounds, and
+    # at most one round a slot (rounds run four between warp votes)
+    windows = -(-5000 // WINDOW)
+    assert bool((prof[:, 3] >= 5000 // 32).all())
+    assert bool((prof[:, 3] <= windows * (WINDOW + 4)).all())
 
 
 @pytest.mark.gpu
