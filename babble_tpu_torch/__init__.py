@@ -1,9 +1,11 @@
 """babble-tpu's consensus math in PyTorch, for one NVIDIA H100.
 
 A port of the JAX package ``babble_tpu`` (which stays the reference):
-the same dense struct-of-arrays DAG state and the same batch consensus
-step — coordinate ingest, round assignment, fame, order — as torch
-tensor code, with the JAX package's one Pallas TPU kernel (the
+the same dense struct-of-arrays DAG state, the same batch consensus
+step — coordinate ingest, round assignment, fame, order — and the same
+live flush (incremental ingest, then fame and order over a window of
+open rounds; ``ops/flush.py``, driven by ``sim/live.py live_stream``) as
+torch tensor code, with the JAX package's one Pallas TPU kernel (the
 last-ancestor walk) rewritten by hand in CUDA for Hopper
 (``csrc/la_walk.cu``).  It imports torch, numpy and the standard library
 only.
@@ -19,6 +21,7 @@ Entry points take an explicit ``device`` ("cuda" by default); pass
     dag = random_gossip_arrays(64, 65536, seed=7)
     cfg = DagConfig(n=64, e_cap=65536, s_cap=dag.max_chain + 1, r_cap=512)
     out = consensus_step(cfg, "walk", init_state(cfg), batch_from_arrays(dag))
+    live, log = live_stream(cfg._replace(packed=True), dag, chunk=256)
 """
 
 from .ops.ingest import EventBatch
@@ -27,11 +30,12 @@ from .ops.state import (
     state_from_numpy, state_to_numpy,
 )
 from .sim.arrays import ArrayDag, batch_from_arrays, random_gossip_arrays
+from .sim.live import live_stream
 from .step import consensus_step
 
 __all__ = [
     "ArrayDag", "DagConfig", "DagState", "EventBatch",
     "assert_consensus_parity", "batch_from_arrays", "consensus_step",
-    "init_state", "random_gossip_arrays", "state_from_numpy",
+    "init_state", "live_stream", "random_gossip_arrays", "state_from_numpy",
     "state_to_numpy",
 ]

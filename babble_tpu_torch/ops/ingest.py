@@ -1,19 +1,27 @@
 """Event ingestion: coordinate fill, first-descendant fill, round
-assignment — the batch modes ``"walk"`` and ``"fast"`` of the JAX
-package's ``ops/ingest.py``, in torch.
+assignment — every fd mode of the JAX package's ``ops/ingest.py``, in
+torch.
 
-- ``"walk"``: la by the one-pass walk (``pallas_ingest.la_walk``, a CUDA
-  kernel on the card), fd by the cheaper of the chain-view compare-count
-  and the reverse level scan, rounds by the witness-frontier march.
-- ``"fast"``: the same, with la by the level scan (one vectorised step
-  per topological level).
+- ``"incremental"`` (the live gossip path): la by the level scan, fd by
+  a [K, E+1] ancestor mask and a column scatter-min, rounds by the
+  level scan.
+- ``"full"``: la by the level scan, fd by the chain-view compare-count,
+  rounds by the level scan.
+- ``"fast"``: la by the level scan, fd by the cheaper of the
+  compare-count and the reverse level scan, rounds by the
+  witness-frontier march.
+- ``"walk"``: ``"fast"`` with la by the one-pass walk
+  (``pallas_ingest.la_walk``, a CUDA kernel on the card).
+- ``"absorb"``: ``"fast"`` with la by log-depth self-absorption and fd
+  by the compare-count.
 
-Both give identical tensors.  The modes ``"incremental"``, ``"full"``
-and ``"absorb"`` are not ported yet (ROADMAP.md Queue 1, item 1).
+All five give identical tensors on a batch that holds the whole DAG;
+``"incremental"`` and ``"full"`` also append a batch to a filled state.
+As in the JAX package, an unknown mode takes the ``"full"`` branches.
 
 Loops whose trip count JAX keeps on the device (``lax.while_loop`` with
 a traced bound) are Python loops here, with one ``.item()`` per trip to
-read the bound: see ``_rounds_frontier``.
+read the bound: see ``_rounds_frontier`` and ``_la_absorb``.
 """
 
 from __future__ import annotations
@@ -22,14 +30,15 @@ from typing import NamedTuple
 
 import torch
 
+from .pack import count_bits
 from .pallas_ingest import la_walk, walk_supported
 from .ss import ss_counts_compare
 from .state import (
     INT32_MAX, DagConfig, DagState, I32, fd_reverse_scan_wins,
-    repack_round_bits, sanitize, set_sentinel,
+    repack_round_bits, retired_mask, sanitize, set_sentinel,
 )
 
-PORTED_FD_MODES = ("walk", "fast")
+PORTED_FD_MODES = ("incremental", "full", "fast", "walk", "absorb")
 
 
 class EventBatch(NamedTuple):
@@ -173,16 +182,45 @@ def _la_level_scan(state: DagState, cfg: DagConfig,
     return state._replace(la=la)
 
 
-def _fd_init_own(state: DagState, cfg: DagConfig, b: EventBatch) -> DagState:
-    kpad = b.sp.shape[0]
-    pos = torch.arange(kpad, dtype=I32, device=b.sp.device)
+def _batch_slots(state: DagState, cfg: DagConfig, b: EventBatch):
+    """(real, slots) of the just-written batch: n_events has already
+    advanced by k; padding lanes point at the sentinel row e_cap."""
+    pos = torch.arange(b.sp.shape[0], dtype=I32, device=b.sp.device)
     real = pos < b.k
-    # slots of the just-written batch: n_events already advanced by k
-    slots = torch.where(real, state.n_events - b.k + pos, cfg.e_cap).long()
+    return real, torch.where(real, state.n_events - b.k + pos,
+                             cfg.e_cap).long()
+
+
+def _fd_init_own(state: DagState, cfg: DagConfig, b: EventBatch) -> DagState:
+    _, slots = _batch_slots(state, cfg, b)
     own_col = torch.clamp(b.creator, 0, cfg.n - 1).long()
     fd = state.fd.clone()
     fd[slots, own_col] = b.seq.to(fd.dtype)
     return state._replace(fd=fd)
+
+
+def _fd_incremental(state: DagState, cfg: DagConfig, b: EventBatch) -> DagState:
+    """For each new event e (creator c, seq q): every ancestor y gains a
+    first descendant by c at q unless it already has an earlier one,
+    fd[y, c] = min(fd[y, c], q) over ancestors — an O(K·E) masked
+    min-scatter.  Several events of one creator share a column and every
+    padding lane writes column n, so the scatter reduces by min
+    (``scatter_reduce_``), never by last write."""
+    real, slots = _batch_slots(state, cfg, b)
+    e1, n, cd = cfg.e_cap + 1, cfg.n, cfg.coord_dtype
+
+    la_b = state.la[slots]                                        # [K, N]
+    cy = torch.clamp(state.creator, 0, n - 1).long()              # [E+1]
+    valid_y = (_iota(e1, cy) < state.n_events) & (state.seq >= 0)
+    # anc[b, y]: y is an ancestor of batch event b
+    anc = la_b[:, cy] >= state.seq[None, :]                       # [K, E+1]
+    anc = anc & valid_y[None, :] & real[:, None]
+
+    vals = torch.where(anc, b.seq[:, None].to(cd), cfg.fd_inf).to(cd)
+    c_dump = torch.where(real, b.creator, n).long()
+    upd = torch.full((e1, n + 1), cfg.fd_inf, dtype=cd, device=cy.device)
+    upd.scatter_reduce_(1, c_dump[None, :].expand(e1, -1), vals.T, "amin")
+    return state._replace(fd=torch.minimum(state.fd, upd[:, :n]))
 
 
 def _fd_reverse_scan(state: DagState, cfg: DagConfig,
@@ -238,6 +276,140 @@ def _fd_full(state: DagState, cfg: DagConfig) -> DagState:
     fd_new[tgt.long()] = out_ctj
     e_row = (_iota(cfg.e_cap + 1, fd_new) == cfg.e_cap)[:, None]
     return state._replace(fd=set_sentinel(fd_new, e_row, cfg.fd_inf))
+
+
+def _rounds_level_scan(state: DagState, cfg: DagConfig,
+                       slot_sched: torch.Tensor,
+                       raw_sched: torch.Tensor) -> DagState:
+    """Assign round + witness per topological level (hashgraph.go:211-305):
+
+        parent_round = max(round[sp], round[op])      (roots: 0)
+        inc          = |{j : strongly_see(x, w_{parent_round, j})}| >= sm[pr]
+        round        = parent_round + inc
+        witness      = no self-parent, or round > round[sp]
+
+    The increment threshold is read per parent round from ``state.sm``,
+    and retired creators never enter a witness table (their writes go
+    to the dump row ``r_cap``, as do non-witnesses and padding lanes).
+
+    Writes land where JAX writes them: padding lanes on event row
+    ``e_cap`` and on the dump row ``r_cap`` of ``wslot``, which a later
+    level gathers only for a parent round outside the window (where
+    lanes of one level write one dump cell, CUDA leaves open which write
+    wins); the caller's sentinel reset restores both rows.  A witness
+    row past ``r_cap`` (JAX drops that scatter) goes to one spare row
+    that is cut off at the end."""
+    n, e_cap, r_cap = cfg.n, cfg.e_cap, cfg.r_cap
+    dev = state.sp.device
+    # (a config with no retired column skips the mask and its host copy)
+    retired = torch.from_numpy(retired_mask(cfg)).to(dev) \
+        if cfg.retired else None
+    sp, op, creator = state.sp, state.op, state.creator
+
+    rnd = state.round.clone()
+    wit = state.witness.clone()
+    # one spare row past the dump row takes the writes JAX drops
+    wslot = torch.cat([state.wslot, torch.full((1, n), -1, dtype=I32,
+                                               device=dev)])
+    max_round = state.max_round
+    for idx, raw in zip(slot_sched, raw_sched):
+        idx = idx.long()
+        real = raw >= 0
+        sp_i, op_i = sp[idx], op[idx]
+        spx = sanitize(sp_i, e_cap).long()
+        opx = sanitize(op_i, e_cap).long()
+        is_root = (sp_i < 0) & (op_i < 0)
+        pr = torch.where(is_root, 0, torch.maximum(rnd[spx], rnd[opx]))
+
+        # parent rounds below the rolled window gather the dump row
+        pr_loc = torch.where(pr >= state.r_off, pr - state.r_off, r_cap)
+        pr_row = torch.clamp(pr_loc, 0, r_cap).long()
+        wsl = wslot[pr_row]                                       # [B, N]
+        fdw = state.fd[sanitize(wsl, e_cap).long()]               # [B, N, N]
+        ss_see = state.la[idx][:, None, :] >= fdw                 # [B, N, N]
+        ss_cnt = count_bits(ss_see) if cfg.packed else ss_see.sum(-1)
+        sm_x = state.sm[pr_row]                                   # [B]
+        ss = (ss_cnt >= sm_x[:, None]) & (wsl >= 0)
+        inc = ss.sum(-1) >= sm_x
+        r_x = pr + inc.to(I32)
+        w_x = (sp_i < 0) | (r_x > rnd[spx])
+
+        rnd[idx] = torch.where(real, r_x, -1)
+        wit[idx] = w_x & real
+        c_i = torch.clamp(creator[idx], 0, n).long()
+        registers = w_x & real & (r_x >= state.r_off)
+        if retired is not None:
+            registers = registers & ~retired[c_i]
+        w_row = torch.where(registers, r_x - state.r_off, r_cap)
+        w_row = torch.clamp(w_row, max=r_cap + 1).long()
+        wslot[w_row, torch.clamp(c_i, max=n - 1)] = idx.to(I32)
+        max_round = torch.maximum(
+            max_round, torch.where(real, r_x, -1).max())
+    return state._replace(round=rnd, witness=wit, wslot=wslot[: r_cap + 1],
+                          max_round=max_round)
+
+
+def _la_init_direct(state: DagState, cfg: DagConfig,
+                    b: EventBatch) -> DagState:
+    """Seed the new events' last-ancestor rows with their direct parent
+    positions only (own seq at own creator, each parent's seq at its
+    creator); ``_la_absorb`` closes the transitive reachability.
+    Missing parents contribute nothing: they are masked on ``sp``/``op``
+    validity, since the sentinel row still holds the padding lanes'
+    dumped creator and seq at this point."""
+    real, slots = _batch_slots(state, cfg, b)
+    kpad, n, cd = b.sp.shape[0], cfg.n, cfg.coord_dtype
+    dev = b.sp.device
+
+    def put_max(rows, col, val):
+        # rows.at[arange, col].max(val): one cell per row
+        return rows.scatter_reduce_(1, col.long()[:, None],
+                                    val.to(cd)[:, None], "amax")
+
+    rows = torch.full((kpad, n), -1, dtype=cd, device=dev)
+    put_max(rows, torch.clamp(b.creator, 0, n - 1), b.seq)
+    for par in (b.sp, b.op):
+        px = sanitize(par, cfg.e_cap).long()
+        put_max(rows, torch.clamp(state.creator[px], 0, n - 1),
+                torch.where(par >= 0, state.seq[px], -1))
+    # padding lanes all write the sentinel row; their rows stay -1
+    rows = torch.where(real[:, None], rows, -1).to(cd)
+    la = state.la.clone()
+    la[slots] = rows
+    return state._replace(la=la)
+
+
+def _la_absorb(state: DagState, cfg: DagConfig) -> DagState:
+    """Close last-ancestor rows by frontier self-absorption:
+
+        la[x, j] <- max(la[x, j], max_k la[ce[k, la[x, k]], j])
+
+    Each pass composes reachability with itself, so it converges in
+    O(log depth) passes.  JAX runs the passes as a ``lax.while_loop``
+    on a device flag; here a Python loop reads the flag with one
+    ``.item()`` per pass."""
+    n, s_cap, e_cap = cfg.n, cfg.s_cap, cfg.e_cap
+    cols = _iota(n, state.ce)
+    spx = sanitize(state.sp, e_cap).long()
+    opx = sanitize(state.op, e_cap).long()
+    s_off = state.s_off[:n]
+
+    def absorb(la):
+        # ce columns are window-local; a JAX gather clamps a column past
+        # s_cap, so the port clamps it explicitly
+        wi = la - s_off[None, :]
+        col = torch.where((la >= 0) & (wi >= 0), wi, s_cap)
+        fr = state.ce[cols[None, :], torch.clamp(col, max=s_cap).long()]
+        absorbed = la[sanitize(fr, e_cap).long()]                 # [E+1, N, N]
+        out = torch.maximum(la, absorbed.max(dim=1).values)
+        return torch.maximum(out, torch.maximum(la[spx], la[opx]))
+
+    la, changed = state.la, True
+    while changed:
+        la2 = absorb(la)
+        changed = bool((la2 != la).any().item())
+        la = la2
+    return state._replace(la=la)
 
 
 def frontier_init(state: DagState, cfg: DagConfig):
@@ -367,34 +539,38 @@ def _rounds_frontier(state: DagState, cfg: DagConfig) -> DagState:
     return frontier_finalize(state, cfg, pos_table)
 
 
-def _check_fd_mode(fd_mode: str) -> None:
-    if fd_mode not in PORTED_FD_MODES:
-        raise NotImplementedError(
-            f"fd_mode {fd_mode!r} is not ported yet (ROADMAP.md Queue 1, "
-            f"item 1 'Live path'); the port runs {PORTED_FD_MODES}"
-        )
-
-
 def ingest_coords_impl(cfg: DagConfig, state: DagState, fd_mode: str,
                        batch: EventBatch) -> DagState:
     """Phase 1 of ingest: write batch fields and fill the la/fd
     coordinate tensors (everything before round assignment)."""
-    _check_fd_mode(fd_mode)
     state = _write_batch_fields(state, cfg, batch)
     slot_sched = _slot_sched(state.n_events - batch.k, cfg, batch.sched)
+
+    def fd_batch(state):
+        # the schedule covers the whole DAG, so the cheaper of reverse
+        # scan and compare-count applies (both are bit-identical)
+        if fd_reverse_scan_wins(batch.sched.shape[0], cfg.e_cap):
+            return _fd_reverse_scan(state, cfg, slot_sched)
+        return _fd_full(state, cfg)
+
     if fd_mode == "walk":
         if not walk_supported(cfg.n, cfg.e_cap, cfg.s_cap):
             raise ValueError(f"walk mode does not support {cfg}")
         la = la_walk(state.sp, state.op, state.creator, state.seq,
                      state.n_events, cfg.e_cap, cfg.n)
-        state = state._replace(la=la.to(cfg.coord_dtype))
-    else:
-        state = _la_level_scan(state, cfg, slot_sched)
+        state = _fd_init_own(state._replace(la=la.to(cfg.coord_dtype)),
+                             cfg, batch)
+        return _reset_coord_sentinels(fd_batch(state), cfg)
+    if fd_mode == "absorb":
+        state = _la_absorb(_la_init_direct(state, cfg, batch), cfg)
+        state = _fd_init_own(state, cfg, batch)
+        return _reset_coord_sentinels(_fd_full(state, cfg), cfg)
+    state = _la_level_scan(state, cfg, slot_sched)
     state = _fd_init_own(state, cfg, batch)
-    # the schedule covers the whole DAG, so the cheaper of reverse scan
-    # and compare-count applies (both are bit-identical)
-    if fd_reverse_scan_wins(batch.sched.shape[0], cfg.e_cap):
-        state = _fd_reverse_scan(state, cfg, slot_sched)
+    if fd_mode == "incremental":
+        state = _fd_incremental(state, cfg, batch)
+    elif fd_mode == "fast":
+        state = fd_batch(state)
     else:
         state = _fd_full(state, cfg)
     return _reset_coord_sentinels(state, cfg)
@@ -403,8 +579,11 @@ def ingest_coords_impl(cfg: DagConfig, state: DagState, fd_mode: str,
 def ingest_rounds_impl(cfg: DagConfig, state: DagState, fd_mode: str,
                        batch: EventBatch) -> DagState:
     """Phase 2 of ingest: round/witness assignment + sentinel reset."""
-    _check_fd_mode(fd_mode)
-    state = _rounds_frontier(state, cfg)
+    if fd_mode in ("walk", "absorb", "fast"):
+        state = _rounds_frontier(state, cfg)
+    else:
+        slot_sched = _slot_sched(state.n_events - batch.k, cfg, batch.sched)
+        state = _rounds_level_scan(state, cfg, slot_sched, batch.sched)
     # the rounds phase rewrote the witness tables: refresh the packed
     # per-round bitplanes
     return repack_round_bits(cfg, _reset_round_sentinels(state, cfg))
@@ -414,9 +593,47 @@ def ingest_impl(cfg: DagConfig, state: DagState, fd_mode: str,
                 batch: EventBatch) -> DagState:
     """Ingest a topologically-ordered batch of events end to end.
 
-    fd_mode:
-    - 'walk' — la by the one-pass walk kernel; gated by walk_supported().
-    - 'fast' — la by the level scan; otherwise the same as 'walk'.
+    fd_mode (``PORTED_FD_MODES``; identical outputs where they overlap):
+    - 'incremental' — O(K·E) fd min-scatter + level-scan rounds (the
+      live gossip path: small batches, shallow schedules).
+    - 'full'        — chain-view fd compare-count + level-scan rounds.
+    - 'fast'        — the cheaper batch fd + frontier-march rounds.
+    - 'walk'        — 'fast' with la by the one-pass walk kernel; gated
+      by walk_supported().
+    - 'absorb'      — 'fast' with la by log-depth self-absorption.
     """
     state = ingest_coords_impl(cfg, state, fd_mode, batch)
     return ingest_rounds_impl(cfg, state, fd_mode, batch)
+
+
+def rescan_rounds_impl(cfg: DagConfig, state: DagState,
+                       sched: torch.Tensor) -> DagState:
+    """Re-run round assignment for a level-grouped schedule of suspect
+    slots (the engine's round repair after growing r_cap): reset the
+    suspects' round/witness, then replay the level scan against the
+    intact lower witness rows, and restore the sentinels its padding
+    lanes dumped into."""
+    e1 = cfg.e_cap + 1
+    raw = sched
+    slots = torch.where(raw >= 0, raw, cfg.e_cap)
+    # mask.at[slots].max(raw >= 0): duplicate slots reduce by max
+    mask = torch.zeros(e1, dtype=I32, device=raw.device)
+    mask.scatter_reduce_(0, slots.reshape(-1).long(),
+                         (raw.reshape(-1) >= 0).to(I32), "amax")
+    e_row = _iota(e1, raw) == cfg.e_cap
+    mask = (mask > 0) & ~e_row
+    rnd = torch.where(mask, -1, state.round)
+    live = (_iota(e1, raw) < state.n_events) & (state.seq >= 0)
+    state = state._replace(
+        round=rnd,
+        witness=state.witness & ~mask,
+        max_round=torch.where(live, rnd, -1).max(),
+    )
+    state = _rounds_level_scan(state, cfg, slots, raw)
+    r_row = (_iota(cfg.r_cap + 1, raw) == cfg.r_cap)[:, None]
+    state = state._replace(
+        round=set_sentinel(state.round, e_row, -1),
+        witness=set_sentinel(state.witness, e_row, False),
+        wslot=set_sentinel(state.wslot, r_row, -1),
+    )
+    return repack_round_bits(cfg, state)

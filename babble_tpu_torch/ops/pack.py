@@ -8,10 +8,14 @@ matching ``np.packbits(..., bitorder="little")``.  Padding lanes
 popcount.
 
 torch has no uint8 popcount on every backend, so ``popcount_sum`` reads
-a 256-entry lookup table.
+a 256-entry lookup table.  The table and the lane weights are copied to
+each device once per process: a copy from host memory per call would
+wait for the device's queue to drain, each time.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -21,6 +25,13 @@ I32 = torch.int32
 
 _WEIGHTS = tuple(1 << j for j in range(LANE))
 _POPCOUNT = tuple(bin(v).count("1") for v in range(256))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(device: torch.device):
+    """(lane weights i32[8], popcount table i32[256]) on ``device``."""
+    return (torch.tensor(_WEIGHTS, dtype=I32, device=device),
+            torch.tensor(_POPCOUNT, dtype=I32, device=device))
 
 
 def lane_count(n: int) -> int:
@@ -38,7 +49,7 @@ def pack_bits(x: torch.Tensor) -> torch.Tensor:
                             device=x.device)], dim=-1
         )
     r = x.reshape(x.shape[:-1] + (lane_count(n), LANE))
-    w = torch.tensor(_WEIGHTS, dtype=I32, device=x.device)
+    w = _device_tables(x.device)[0]
     # accumulate in i32 (exact: lane totals < 256), narrow once
     return (r.to(I32) * w).sum(-1, dtype=I32).to(U8)
 
@@ -47,8 +58,7 @@ def popcount_sum(x: torch.Tensor) -> torch.Tensor:
     """uint8[..., L] -> int[...]: total set bits over the lane axis
     (summed at the default integer width, as the JAX package's sum is
     under x64)."""
-    table = torch.tensor(_POPCOUNT, dtype=I32, device=x.device)
-    return table[x.long()].sum(-1)
+    return _device_tables(x.device)[1][x.long()].sum(-1)
 
 
 def count_bits(x: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,7 @@ state carries over with ``state_from_numpy`` and back with
 
 from __future__ import annotations
 
+import hashlib
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -281,6 +282,13 @@ def retired_mask(cfg: DagConfig) -> np.ndarray:
     return mask
 
 
+def bucket(x: int, minimum: int = 8) -> int:
+    """Round a capacity up to a power of two (the JAX package's shape
+    buckets: batch padding, schedule padding, the flush frontier)."""
+    v = max(x, minimum)
+    return 1 << (v - 1).bit_length()
+
+
 def fd_reverse_scan_wins(sched_rows: int, e_cap: int, k: int = 1) -> bool:
     """The JAX package's static choice between the two first-descendant
     strategies (reverse level scan vs chain-view compare-count), copied
@@ -344,3 +352,21 @@ def assert_consensus_parity(ref, out, n_events: int, label: str = "") -> None:
             f"consensus parity broken{tag}: "
             f"lcr {int(_host(ref.lcr))} != {int(_host(out.lcr))}"
         )
+
+
+def consensus_digest(state, n_events: int) -> str:
+    """sha256 over every consensus decision of ``state`` (the fields
+    ``assert_consensus_parity`` compares, per-event ones cut to the
+    first ``n_events`` rows, each in its own dtype's bytes), then lcr
+    and max_round.  Either torch tensors or numpy arrays: a JAX state
+    passed through ``np.asarray`` hashes the same."""
+    h = hashlib.sha256()
+    for f in CONSENSUS_EVENT_FIELDS + CONSENSUS_TABLE_FIELDS:
+        a = _host(getattr(state, f))
+        if f in CONSENSUS_EVENT_FIELDS:
+            a = a[:n_events]
+        h.update(f.encode() + str(a.dtype).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    for f in ("lcr", "max_round"):
+        h.update(f.encode() + str(int(_host(getattr(state, f)))).encode())
+    return h.hexdigest()

@@ -1,14 +1,18 @@
-"""Profile one batch consensus step on the card.
+"""Profile one batch consensus step, or one live flush, on the card.
 
-    python -m babble_tpu_torch.profile_step [--mode walk|fast]
+    python -m babble_tpu_torch.profile_step [--mode walk|fast|live]
 
-Runs the slice configuration (64 participants x 65,536 events, seed 7,
-r_cap 512) once to warm up, then once under ``torch.profiler`` with CPU
-and CUDA activities, and prints: the step's wall time, the number of
-device kernels it ran, the device busy share (the union of kernel
-intervals over the wall time; 1 - busy is the idle share) and the ten
-kernels with the most device time.  It needs a CUDA card and fails
-without one.
+Modes ``walk`` and ``fast`` run the slice configuration (64
+participants x 65,536 events, seed 7, r_cap 512) once to warm up, then
+once under ``torch.profiler`` with CPU and CUDA activities.  Mode
+``live`` streams the same DAG (``packed``, gated, flushes of 256
+events) up to slot 32,768, runs the next flush once to warm up, then
+profiles that flush again from the same state.  It prints: the wall
+time, the number of device activities (kernels and copies), the device
+busy share (the union of their intervals over the wall time; 1 - busy
+is the idle share), the ten kernels with the most device time and, for
+``live``, the host span of each phase region.  It needs a CUDA card and
+fails without one.
 """
 
 from __future__ import annotations
@@ -34,6 +38,33 @@ def _busy_us(intervals) -> float:
     return total
 
 
+#: the record_function regions of ops/flush.py live_flush_impl
+PHASES = ("babble_ingest", "babble_fame", "babble_order")
+#: the live mode's flush size and the slot of the profiled flush
+LIVE_CHUNK = 256
+LIVE_MID = 32768
+
+
+def _live_flush(cfg, dag, dev):
+    """Stream ``dag`` (gated) up to slot LIVE_MID and return a function
+    that runs the next flush from that state (flushes do not modify
+    their input state, so it can run twice)."""
+    from .ops.flush import live_flush_impl
+    from .sim.live import (
+        chunk_levels, flush_shape, live_stream, read_mirrors, stream_batch,
+    )
+
+    state, _ = live_stream(cfg, dag, LIVE_CHUNK, True, device=dev,
+                           stop=LIVE_MID, drain=False)
+    lo, hi = LIVE_MID, LIVE_MID + LIVE_CHUNK
+    W, F = flush_shape(cfg, read_mirrors(state), hi - lo,
+                       chunk_levels(dag, lo, hi), True)
+    batch = stream_batch(dag, lo, hi, dev)
+    print(f"[profile] live flush at slot {lo}: k {hi - lo}, W {W}, F {F}, "
+          f"sched {tuple(batch.sched.shape)}")
+    return lambda: live_flush_impl(cfg, W, F, True, state, batch)
+
+
 def main(argv=None) -> int:
     import torch
     from torch.autograd import DeviceType
@@ -44,7 +75,8 @@ def main(argv=None) -> int:
     from .sim.arrays import random_gossip_arrays
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("walk", "fast"), default="walk")
+    ap.add_argument("--mode", choices=("walk", "fast", "live"),
+                    default="walk")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -53,19 +85,30 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     dag = random_gossip_arrays(64, 65536, seed=7)
     cfg = DagConfig(n=64, e_cap=65536, s_cap=dag.max_chain + 1, r_cap=512)
-    batch = batch_from_arrays(dag, device=dev)
-    consensus_step(cfg, args.mode, init_state(cfg, device=dev), batch)
-    state0 = init_state(cfg, device=dev)
+    if args.mode == "live":
+        run = _live_flush(cfg._replace(packed=True), dag, dev)
+    else:
+        batch = batch_from_arrays(dag, device=dev)
+        state0 = init_state(cfg, device=dev)
+
+        def run():
+            return consensus_step(cfg, args.mode, state0, batch)
+
+    run()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        consensus_step(cfg, args.mode, state0, batch)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device activities; a record_function region also leaves a device
+    # span (a user annotation), which is no work of the card
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in PHASES]
     if not kernels:
         print("profile_step: the profiler recorded no device activity",
               file=sys.stderr)
@@ -77,14 +120,20 @@ def main(argv=None) -> int:
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     print(f"[profile] {torch.cuda.get_device_name(0)}; mode {args.mode}; "
-          f"wall {wall_us / 1e3:.1f} ms; {len(kernels)} device activities; "
-          f"device busy {busy / 1e3:.1f} ms = {busy / wall_us:.4f} of wall")
+          f"wall {wall_us / 1e3:.3f} ms; {len(kernels)} device activities; "
+          f"device busy {busy / 1e3:.3f} ms = {busy / wall_us:.4f} of wall")
     for name, (t, c) in top:
         print(f"[profile]   {t / 1e3:9.3f} ms  x{c:<6d} {name[:90]}")
+    regions = {e.name: e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.name in PHASES and e.device_type != DeviceType.CUDA}
+    if regions:
+        print("[profile] phase regions (host span, ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in regions.items()))
     print(json.dumps({
-        "mode": args.mode, "wall_ms": wall_us / 1e3,
+        "mode": args.mode, "device": torch.cuda.get_device_name(0),
+        "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3, "busy_share": busy / wall_us,
-        "device_activities": len(kernels),
+        "device_activities": len(kernels), "phase_regions_ms": regions,
         "top": [{"name": n[:120], "ms": t / 1e3, "count": c}
                 for n, (t, c) in top],
     }))

@@ -17,7 +17,8 @@ from .ops.state import DagConfig, DagState
 
 def consensus_step(cfg: DagConfig, fd_mode: str, state: DagState,
                    batch: EventBatch, batch_window: bool = True) -> DagState:
-    """The full step: ingest (``fd_mode`` "walk" or "fast"), DecideFame,
+    """The full step: ingest (any ``ingest.PORTED_FD_MODES`` mode; the
+    batch step runs "walk" or "fast"), DecideFame,
     then FindOrder's device half.  ``batch_window`` asserts the
     all-window-offsets-zero invariant of fresh batch states."""
     state = ingest_impl(cfg, state, fd_mode, batch)

@@ -32,6 +32,24 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    must agree bit for bit on every consensus field, and the run must
    reproduce the JAX package's counts for this DAG: max_round 93, lcr
    91, 63,340 events ordered.
+5. live   — the live path (``sim/live.py live_stream``: incremental
+   ingest, windowed fame and order per flush) on the same DAG and
+   config with ``packed=True``, as a gossip stream flushed 256 events at
+   a time (256 flushes) and then drained, ungated and gated (as a live
+   node runs it).  Each drained state must equal the JAX package's
+   stream bit for bit (its counts and ``consensus_digest``, from a CPU
+   run) and the walk step on la, fd, round, witness and wslot.  Gated,
+   drained, it must equal the walk step on every consensus field.
+   Ungated, lcr can jump a round whose fame is still open, which
+   is then never decided, so rr and cts may differ from the batch
+   step's (as they do in the JAX stream); the phase prints how many.
+   In mid-stream
+   one flush runs with the dispatch's frontier bucket F and with the
+   full height F = e_cap + 1, which must agree, and 8 flushes run as
+   ``probed_flush`` (ingest / fame / order each synchronised), which
+   must equal the same flushes unprobed.  It prints each stream's flush
+   count, the W and F values used, per-flush wall ms (p50, p99, max) and
+   events per second, and the probed phase split.
 
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -55,6 +73,21 @@ GATE = dict(n=64, e=94661, seed=7, seq_base=0)
 WRAP = dict(n=8, e=4096, seed=3,
             seq_base=[32700, 65500, 0, 40000, 70000, 131000, 5, 65536])
 SCRATCH_BYTES = 256 << 20    # > 5x the 50 MB L2
+# the live stream: flush size (the JAX engine's LATENCY_K_MAX), the slot
+# of the mid-stream checks, and how many flushes the phase probe times
+LIVE_CHUNK = 256
+LIVE_MID = 32768
+LIVE_PROBED = 8
+# the JAX package's drained live streams of the slice DAG (packed, flushes
+# of LIVE_CHUNK, W and F as its engine picks them): counts and
+# ops.state.consensus_digest, from a CPU run of
+# ``JAX_PLATFORMS=cpu python -m tests.test_torch_live`` (chip_reference)
+LIVE_EXPECT = {
+    "ungated": dict(max_round=93, lcr=91, ordered=63340, digest=(
+        "47deae5b37a8ef15bae8b1a3f4d3c99e76c3b2098965e555a65096cbeeaef645")),
+    "gated": dict(max_round=93, lcr=91, ordered=63340, digest=(
+        "a3b853b0cabea581d84e91839a6e8e72bea6170526e521f39b32888fe753195c")),
+}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
 PEAK_BYTES_S = 3.35e12
@@ -311,7 +344,129 @@ def phase_slice(dev, card: str):
           flush=True)
     print("[slice] phases (ms wall): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
-    return launches, step_ms
+    return launches, step_ms, out, cfg, dag
+
+
+def stream_stats(name: str, log, card: str) -> str:
+    """One line on a stream's flush log: flush count, the W and F
+    values, per-flush wall ms (p50, p99, max) and events per second."""
+    import numpy as np
+
+    ms = np.array([r.ms for r in log])
+    events = sum(r.k for r in log)
+    drains = sum(1 for r in log if r.k == 0)
+    return (f"[live] {name}: {len(log)} flushes ({len(log) - drains} of "
+            f"up to {LIVE_CHUNK} events, {drains} drain), W "
+            f"{sorted({r.W for r in log})}, F {sorted({r.F for r in log})}; "
+            f"per-flush wall ms p50 {np.percentile(ms, 50):.3f}, p99 "
+            f"{np.percentile(ms, 99):.3f}, max {ms.max():.3f}; "
+            f"{events / (ms.sum() / 1e3):.1f} events/s over "
+            f"{ms.sum() / 1e3:.3f} s of flushes; lcr {log[-1].lcr} ({card})")
+
+
+def check_stream(name: str, state, walk_out, e: int) -> None:
+    """A drained stream against the JAX package's (``LIVE_EXPECT``), and
+    its coordinates and witnesses against the walk step's."""
+    import torch
+
+    from babble_tpu_torch.ops.state import consensus_digest
+
+    got = dict(max_round=int(state.max_round.item()),
+               lcr=int(state.lcr.item()),
+               ordered=int((state.rr[:e] >= 0).sum().item()),
+               digest=consensus_digest(state, e))
+    if got != LIVE_EXPECT[name]:
+        raise AssertionError(
+            f"{name} live stream {got} != JAX package's {LIVE_EXPECT[name]}")
+    for f in ("la", "fd", "round", "witness"):
+        if not torch.equal(getattr(state, f)[:e], getattr(walk_out, f)[:e]):
+            raise AssertionError(f"{name} live stream: {f} != walk step")
+    if not torch.equal(state.wslot, walk_out.wslot):
+        raise AssertionError(f"{name} live stream: wslot != walk step")
+
+
+def phase_live(dev, card: str, walk_out, cfg, dag) -> None:
+    """The live stream, ungated and gated, against the walk step."""
+    import torch
+
+    from babble_tpu_torch import assert_consensus_parity
+    from babble_tpu_torch.ops.flush import live_flush_impl, probed_flush
+    from babble_tpu_torch.sim.live import (
+        chunk_levels, flush_shape, live_stream, read_mirrors, stream_batch,
+    )
+
+    cfg = cfg._replace(packed=True)
+    e, mid = cfg.e_cap, LIVE_MID
+    # warm-up (first-use costs of torch's kernels), not counted
+    live_stream(cfg, dag, LIVE_CHUNK, True, device=dev, stop=2048)
+
+    state, log = live_stream(cfg, dag, LIVE_CHUNK, False, device=dev)
+    print(stream_stats("ungated", log, card), flush=True)
+    if sum(r.k > 0 for r in log) != -(-dag.n_events // LIVE_CHUNK):
+        raise AssertionError("the ungated stream did not flush every chunk")
+    check_stream("ungated", state, walk_out, e)
+    # ungated lcr is the highest decided round in the window, so a round
+    # whose witness is still open can be jumped and never revisited: its
+    # events are received later than in the batch step (the JAX stream
+    # does the same; LIVE_EXPECT holds the card to it)
+    R, lcr = cfg.r_cap, int(state.lcr.item())
+    open_rows = ((state.famous[:R] == 0) & (state.wslot[:R] >= 0)).any(dim=1)
+    abandoned = torch.nonzero(open_rows[: lcr + 1]).flatten().tolist()
+    rr_diff = int((state.rr[:e] != walk_out.rr[:e]).sum().item())
+    cts_diff = int((state.cts[:e] != walk_out.cts[:e]).sum().item())
+    print(f"[live] ungated drained state == the JAX package's stream "
+          f"(counts and consensus digest); la, fd, round, witness, wslot "
+          f"== walk step; against the walk step rr differs on {rr_diff} "
+          f"events and cts on {cts_diff}, rounds left with an open witness "
+          f"at or below lcr: {abandoned}", flush=True)
+
+    # gated, in two halves: the frontier check and the probed flushes
+    # run on the state at slot LIVE_MID (flushes do not modify their
+    # input state)
+    half, log1 = live_stream(cfg, dag, LIVE_CHUNK, True, device=dev,
+                             stop=mid, drain=False)
+    m = read_mirrors(half)
+    batch = stream_batch(dag, mid, mid + LIVE_CHUNK, dev)
+    W, F = flush_shape(cfg, m, LIVE_CHUNK,
+                       chunk_levels(dag, mid, mid + LIVE_CHUNK), True)
+    if F >= e + 1:
+        raise AssertionError(f"F {F} at slot {mid} is the full height")
+    a = live_flush_impl(cfg, W, F, True, half, batch)
+    b = live_flush_impl(cfg, W, e + 1, True, half, batch)
+    for f, x, y in zip(a._fields, a, b):
+        if not torch.equal(x, y):
+            raise AssertionError(f"frontier F={F} vs F={e + 1}: {f} differs")
+    print(f"[live] frontier: flush at slot {mid} (W {W}) with F {F} == "
+          f"with F {e + 1} on every field", flush=True)
+
+    probe, split = half, {"ingest_s": 0.0, "fame_s": 0.0, "order_s": 0.0}
+    m, lo = read_mirrors(half), mid
+    for _ in range(LIVE_PROBED):
+        hi = lo + LIVE_CHUNK
+        W, F = flush_shape(cfg, m, hi - lo, chunk_levels(dag, lo, hi), True)
+        probe, t = probed_flush(cfg, W, F, True, probe,
+                                stream_batch(dag, lo, hi, dev))
+        split = {k: split[k] + t[k] for k in split}
+        m, lo = read_mirrors(probe), hi
+    plain, _ = live_stream(cfg, dag, LIVE_CHUNK, True, state=half, stop=lo,
+                           drain=False)
+    for f, x, y in zip(plain._fields, plain, probe):
+        if not torch.equal(x, y):
+            raise AssertionError(f"probed flushes differ from plain: {f}")
+    print(f"[live] probed_flush over {LIVE_PROBED} flushes from slot {mid} "
+          f"(== unprobed), mean ms per flush: " + ", ".join(
+              f"{k[:-2]} {v * 1e3 / LIVE_PROBED:.3f}" for k, v in split.items())
+          + f" ({card})", flush=True)
+
+    state, log2 = live_stream(cfg, dag, LIVE_CHUNK, True, state=half)
+    print(stream_stats("gated", log1 + log2, card), flush=True)
+    check_stream("gated", state, walk_out, e)
+    # drained, the gated stream decides every round the batch step does
+    assert_consensus_parity(walk_out, state, e, "gated live vs walk step")
+    print(f"[live] gated drained state == the JAX package's stream (counts "
+          f"and consensus digest) == walk step on every consensus field "
+          f"(lcr {int(state.lcr.item())}, "
+          f"{int((state.rr[:e] >= 0).sum().item())} ordered)", flush=True)
 
 
 def main() -> int:
@@ -335,10 +490,11 @@ def main() -> int:
     kernel_resources()
 
     row = phase_kernel(dev)
-    launches, step_ms = phase_slice(dev, card)
+    launches, step_ms, out, cfg, dag = phase_slice(dev, card)
     row["launches"] = launches
     print(f"[slice] la_walk share of the walk step: "
           f"{row['ms'] * launches / step_ms:.4f}", flush=True)
+    phase_live(dev, card, out, cfg, dag)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [row]}), flush=True)

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and runs a consensus step with both blocked."""
+package, and runs a consensus step and a live stream with both blocked."""
 
 import ast
 import os
@@ -51,6 +51,9 @@ for mode in ("walk", "fast"):
                             bt.batch_from_arrays(dag, device="cpu"))
     assert int(out.lcr) > 0, int(out.lcr)
     assert int((out.rr >= 0).sum()) > 0
+from babble_tpu_torch.sim.live import live_stream
+live, log = live_stream(cfg, dag, 8, gate=True, device="cpu")
+assert int(live.lcr) > 0 and log[-1].k == 0, (int(live.lcr), log[-1])
 blocked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "babble_tpu")
            and sys.modules[m] is not None]
 assert not blocked, blocked

@@ -144,3 +144,20 @@ def test_step_on_card_matches_cpu(mode):
     out = consensus_step(cfg, mode, init_state(cfg, device="cuda"),
                          batch_from_arrays(dag, device="cuda"))
     assert_consensus_parity(ref, out, cfg.e_cap, f"{mode} cpu vs card")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate", [False, True])
+def test_live_stream_on_card_matches_cpu(gate):
+    from babble_tpu_torch import live_stream
+
+    _need_card()
+    dag = random_gossip_arrays(8, 1024, seed=13)
+    cfg = DagConfig(n=8, e_cap=1024, s_cap=max(64, dag.max_chain + 1),
+                    r_cap=64, packed=True)
+    ref, ref_log = live_stream(cfg, dag, 64, gate, device="cpu")
+    out, log = live_stream(cfg, dag, 64, gate, device="cuda")
+    assert [(r.k, r.W, r.F, r.lcr) for r in log] == \
+        [(r.k, r.W, r.F, r.lcr) for r in ref_log]
+    for f, a, b in zip(ref._fields, ref, out):
+        assert torch.equal(a, b.cpu()), f
