@@ -7,8 +7,10 @@ live flush (incremental ingest, then fame and order over a window of
 open rounds; ``ops/flush.py``, driven by ``sim/live.py live_stream``) as
 torch tensor code, with the JAX package's one Pallas TPU kernel (the
 last-ancestor walk) rewritten by hand in CUDA for Hopper
-(``csrc/la_walk.cu``).  It imports torch, numpy and the standard library
-only.
+(``csrc/la_walk.cu``), and the consensus engine around them
+(``consensus/engine.py TorchHashgraph``: host DAG, batching, the
+latency/throughput dispatch, compaction, commit order and digest).  It
+imports torch, numpy and the standard library only.
 
 Entry points take an explicit ``device`` ("cuda" by default); pass
 ``device="cpu"`` to run every stage in plain torch on the CPU.
@@ -22,20 +24,30 @@ Entry points take an explicit ``device`` ("cuda" by default); pass
     cfg = DagConfig(n=64, e_cap=65536, s_cap=dag.max_chain + 1, r_cap=512)
     out = consensus_step(cfg, "walk", init_state(cfg), batch_from_arrays(dag))
     live, log = live_stream(cfg._replace(packed=True), dag, chunk=256)
+
+    eng = TorchHashgraph(dag.participants(), verify_signatures=False)
+    for ev in events_from_arrays(dag):
+        eng.insert_event(ev)
+    committed = eng.run_consensus()
 """
 
+from .consensus.engine import TorchHashgraph
 from .ops.ingest import EventBatch
 from .ops.state import (
     DagConfig, DagState, assert_consensus_parity, init_state,
     state_from_numpy, state_to_numpy,
 )
-from .sim.arrays import ArrayDag, batch_from_arrays, random_gossip_arrays
+from .sim.arrays import (
+    ArrayDag, batch_from_arrays, events_from_arrays, random_gossip_arrays,
+)
+from .sim.generator import random_gossip_dag
 from .sim.live import live_stream
 from .step import consensus_step
 
 __all__ = [
-    "ArrayDag", "DagConfig", "DagState", "EventBatch",
+    "ArrayDag", "DagConfig", "DagState", "EventBatch", "TorchHashgraph",
     "assert_consensus_parity", "batch_from_arrays", "consensus_step",
-    "init_state", "live_stream", "random_gossip_arrays", "state_from_numpy",
+    "events_from_arrays", "init_state", "live_stream",
+    "random_gossip_arrays", "random_gossip_dag", "state_from_numpy",
     "state_to_numpy",
 ]

@@ -218,6 +218,98 @@ def init_state(cfg: DagConfig, include_coords: bool = True,
     )
 
 
+def grow_state(state: DagState, old: DagConfig, new: DagConfig) -> DagState:
+    """Copy a state into larger-capacity tensors on its own device, the
+    sentinel rows kept at the new last index (the JAX package's
+    ``grow_state``)."""
+    if old.coord_dtype != new.coord_dtype:
+        raise ValueError(
+            "cannot grow across coordinate dtypes: values would be "
+            f"silently cast ({old.coord_dtype} -> {new.coord_dtype})"
+        )
+    fresh = init_state(new, include_coords=state.la is not None,
+                       device=state.sp.device)
+    out = {}
+    for f in PER_EVENT_FIELDS:
+        dst, src = getattr(fresh, f), getattr(state, f)
+        if src is not None:
+            dst[: old.e_cap] = src[: old.e_cap]
+        out[f] = dst
+    for f in ("wslot", "famous", "sm", "mbr", "fmr"):
+        dst = getattr(fresh, f)
+        dst[: old.r_cap] = getattr(state, f)[: old.r_cap]
+        out[f] = dst
+    fresh.ce[: old.n + 1, : old.s_cap] = state.ce[:, : old.s_cap]
+    fresh.cnt[: old.n + 1] = state.cnt
+    fresh.s_off[: old.n + 1] = state.s_off
+    return fresh._replace(
+        **out, ce=fresh.ce, cnt=fresh.cnt, s_off=fresh.s_off,
+        n_events=state.n_events, max_round=state.max_round, lcr=state.lcr,
+        e_off=state.e_off, r_off=state.r_off,
+    )
+
+
+def compact_impl(cfg: DagConfig, state: DagState, de, new_s_off: torch.Tensor,
+                 dr) -> DagState:
+    """Roll the windows (the JAX package's ``compact_impl``): evict the
+    first ``de`` event slots (a decided prefix), move each creator's seq
+    window to start at ``new_s_off[c]`` and roll ``dr`` rounds off the
+    witness tables, every tensor keeping its shape.  The caller
+    (``TorchHashgraph.maybe_compact``) guarantees the evicted prefix is
+    never referenced again.
+
+    Row ``e_cap`` of every per-event tensor holds an untouched (init)
+    row, so the gather ``a[min(arange + de, e_cap)]`` both shifts the
+    live rows down and back-fills the tail with fresh rows; likewise the
+    sentinel column of ``ce`` and the sentinel row of the round tables.
+    Slot values are remapped to the new rows (-1 where evicted)."""
+    e1, s1, r1 = cfg.e_cap + 1, cfg.s_cap + 1, cfg.r_cap + 1
+    dev = state.sp.device
+
+    eidx = torch.clamp(torch.arange(e1, device=dev) + de, max=cfg.e_cap)
+
+    def remap(v):
+        return torch.where(v >= de, v - de, -1).to(v.dtype)
+
+    # ce: per-creator column shift by (new_s_off - s_off), values remapped
+    ds = (new_s_off - state.s_off)[:, None].long()               # [N+1, 1]
+    scol = torch.clamp(torch.arange(s1, device=dev)[None, :] + ds,
+                       max=cfg.s_cap)
+    ce = remap(torch.gather(state.ce, 1, scol))
+
+    ridx = torch.clamp(torch.arange(r1, device=dev) + dr, max=cfg.r_cap)
+
+    return state._replace(
+        sp=remap(state.sp[eidx]),
+        op=remap(state.op[eidx]),
+        creator=state.creator[eidx],
+        seq=state.seq[eidx],
+        ts=state.ts[eidx],
+        mbit=state.mbit[eidx],
+        la=state.la[eidx] if state.la is not None else None,
+        fd=state.fd[eidx] if state.fd is not None else None,
+        round=state.round[eidx],
+        witness=state.witness[eidx],
+        rr=state.rr[eidx],
+        cts=state.cts[eidx],
+        ce=ce,
+        wslot=remap(state.wslot[ridx]),
+        famous=state.famous[ridx],
+        # fresh rounds inherit the current threshold from the sentinel row
+        sm=state.sm[ridx],
+        mbr=state.mbr[ridx],
+        fmr=state.fmr[ridx],
+        n_events=state.n_events - de,
+        e_off=state.e_off + de,
+        s_off=new_s_off.to(device=dev, dtype=I32),
+        r_off=state.r_off + dr,
+    )
+
+
+#: the JAX package's compiled entry point; eager torch runs the impl
+compact = compact_impl
+
+
 def state_from_numpy(cfg: DagConfig, arrays, device="cuda") -> DagState:
     """Carry a state given as numpy arrays (a JAX ``DagState`` passed
     through ``np.asarray``, or any object with the DagState field names

@@ -13,7 +13,7 @@ with parents (own head, sender head).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,14 @@ class ArrayDag:
     @property
     def max_chain(self) -> int:
         return int(self.seq.max()) + 1 if len(self.seq) else 0
+
+    def participants(self) -> Dict[str, int]:
+        """Fake identities compatible with ``sim.generator``'s naming."""
+        from .generator import _fake_pub
+
+        return {
+            ("0x" + _fake_pub(i).hex().upper()): i for i in range(self.n)
+        }
 
 
 def _splitmix64(state: int) -> Tuple[int, int]:
@@ -164,6 +172,30 @@ def build_schedule(levels: np.ndarray, n_levels: int = 0) -> np.ndarray:
     cols = np.arange(k) - starts[np.searchsorted(ulev, sorted_lv)]
     sched[sorted_lv, cols] = order.astype(np.int32)
     return sched
+
+
+def events_from_arrays(dag: ArrayDag):
+    """Materialize Event objects from an ArrayDag (engine interop).
+    Pseudo-signatures derive from the slot so hashes are deterministic."""
+    from ..core.event import Event, EventBody
+    from .generator import _fake_pub
+
+    pubs = [_fake_pub(i) for i in range(dag.n)]
+    events = []
+    hexes = []
+    for k in range(dag.n_events):
+        body = EventBody(
+            transactions=[],
+            self_parent=hexes[dag.sp[k]] if dag.sp[k] >= 0 else "",
+            other_parent=hexes[dag.op[k]] if dag.op[k] >= 0 else "",
+            creator=pubs[dag.creator[k]],
+            timestamp=int(dag.ts[k]),
+            index=int(dag.seq[k]),
+        )
+        ev = Event(body=body, r=(k << 1) | 1, s=(k << 2) | 1)
+        events.append(ev)
+        hexes.append(ev.hex())
+    return events
 
 
 def batch_from_arrays(dag: ArrayDag, bucket=None, device="cuda"):

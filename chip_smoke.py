@@ -51,6 +51,24 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    count, the W and F values used, per-flush wall ms (p50, p99, max) and
    events per second, and the probed phase split.
 
+6. engine — the consensus engine (``TorchHashgraph``) on the same DAG,
+   turned into events (``events_from_arrays``, unsigned, as the JAX
+   simulations run).  (a) Catch-up: a fresh engine takes all 65,536
+   events and one ``run_consensus`` (the throughput surface: fd mode
+   "full", fame, order); its round, witness, wslot, famous and lcr must
+   equal the walk step's.  (b) Live node: the engine a ``Node`` builds
+   (``node_engine_kwargs()``: e_cap 500, rolling windows, gated), fed
+   256 events per ``run_consensus`` and drained.  Both must reproduce
+   the JAX engine's flows (``ENGINE_EXPECT``: commit length, commit
+   digest, calls per surface, lcr, evicted slots, final capacities,
+   fallbacks).  It prints per-call wall ms, events committed per
+   second, the growth steps, the evictions and the share of host code
+   (inserts, ``build_batch``, ``_collect_ordered``).  (c) Block fame on
+   phase 4's ingested state, gated and ungated, against the diagonal
+   form.  The engine path launches no kernel of the port (it ingests
+   with fd modes "incremental" and "full", never "walk"), which the
+   phase checks on la_walk's count.
+
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -88,6 +106,25 @@ LIVE_EXPECT = {
     "gated": dict(max_round=93, lcr=91, ordered=63340, digest=(
         "a3b853b0cabea581d84e91839a6e8e72bea6170526e521f39b32888fe753195c")),
 }
+
+# the JAX engine's two flows over the slice DAG (the catch-up: one
+# run_consensus over every event; the live node: node_engine_kwargs(),
+# LIVE_CHUNK events per call, then drained), from a CPU run of
+# ``JAX_PLATFORMS=cpu python -m tests.test_torch_engine`` (chip_reference)
+ENGINE_EXPECT = {
+    "catchup": dict(
+        commit_length=63340, commit_digest=(
+            "ba5d3c5b1c444f47ee429937051809165fd8c1a21234da0c3b947fd78335217b"),
+        calls=1, latency=0, throughput=1, lcr=91, evicted=0, e_cap=65536,
+        r_cap=1024, flush_fallbacks=0),
+    "live": dict(
+        commit_length=63340, commit_digest=(
+            "ba5d3c5b1c444f47ee429937051809165fd8c1a21234da0c3b947fd78335217b"),
+        calls=257, latency=213, throughput=44, lcr=91, evicted=30001,
+        e_cap=64000, r_cap=64, flush_fallbacks=5),
+}
+# most empty calls the live node's drain makes
+DRAIN_MAX = 64
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
 PEAK_BYTES_S = 3.35e12
@@ -324,6 +361,8 @@ def phase_slice(dev, card: str):
         box = {}
         phases[name] = wall_ms(lambda: box.setdefault("s", fn(st)))
         st = box["s"]
+        if name == "ingest_rounds":
+            ingested = st
     assert_consensus_parity(out, st, cfg.e_cap, "phased-vs-step")
 
     fast = consensus_step(cfg, "fast", init_state(cfg, device=dev), batch)
@@ -344,7 +383,7 @@ def phase_slice(dev, card: str):
           flush=True)
     print("[slice] phases (ms wall): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
-    return launches, step_ms, out, cfg, dag
+    return launches, step_ms, out, cfg, dag, ingested
 
 
 def stream_stats(name: str, log, card: str) -> str:
@@ -469,6 +508,174 @@ def phase_live(dev, card: str, walk_out, cfg, dag) -> None:
           f"{int((state.rr[:e] >= 0).sum().item())} ordered)", flush=True)
 
 
+def engine_summary(eng, kinds) -> dict:
+    """What ENGINE_EXPECT holds the engine to after a flow (the fields of
+    tests/test_torch_engine.py flow_summary)."""
+    return dict(
+        commit_length=eng.commit_length, commit_digest=eng.commit_digest,
+        calls=len(kinds), latency=kinds.count("latency"),
+        throughput=kinds.count("throughput"),
+        lcr=eng.last_consensus_round, evicted=eng.dag.slot_base,
+        e_cap=eng.cfg.e_cap, r_cap=eng.cfg.r_cap,
+        flush_fallbacks=eng.flush_fallbacks,
+    )
+
+
+def check_engine(name: str, got: dict) -> None:
+    if got != ENGINE_EXPECT[name]:
+        diff = {k: (got[k], v) for k, v in ENGINE_EXPECT[name].items()
+                if got[k] != v}
+        raise AssertionError(
+            f"engine {name} != the JAX engine's (port, JAX): {diff}")
+
+
+def timed(fn, acc: list):
+    """``fn`` with its wall seconds added to ``acc[0]`` on every call."""
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            acc[0] += time.perf_counter() - t0
+    return run
+
+
+def phase_engine(dev, card: str, walk_out, walk_cfg, dag) -> None:
+    """The engine as a catch-up and as a live node (module docstring)."""
+    import numpy as np
+    import torch
+
+    from babble_tpu_torch import TorchHashgraph, events_from_arrays
+    from babble_tpu_torch.consensus.engine import node_engine_kwargs
+
+    t0 = time.perf_counter()
+    events = events_from_arrays(dag)
+    participants = dag.participants()
+    print(f"[engine] {len(events)} events built on the host in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (a) catch-up
+    eng = TorchHashgraph(participants, verify_signatures=False, device=dev)
+    t0 = time.perf_counter()
+    for ev in events:
+        eng.insert_event(ev.clone())
+    t1 = time.perf_counter()
+    committed = eng.run_consensus()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    got = engine_summary(eng, [eng.last_kernel_class])
+    check_engine("catchup", got)
+    e, R = walk_cfg.e_cap, walk_cfg.r_cap
+    st = eng.state
+    for f in ("round", "witness"):
+        if not torch.equal(getattr(st, f)[:e], getattr(walk_out, f)[:e]):
+            raise AssertionError(f"catch-up engine: {f} != walk step")
+    for f, none in (("wslot", -1), ("famous", 0)):
+        a, b = getattr(st, f), getattr(walk_out, f)
+        if not (torch.equal(a[:R], b[:R]) and bool((a[R:] == none).all())):
+            raise AssertionError(f"catch-up engine: {f} != walk step")
+    if int(st.lcr) != int(walk_out.lcr):
+        raise AssertionError("catch-up engine: lcr != walk step")
+    print(f"[engine] catch-up: {len(committed)} committed in one "
+          f"run_consensus ({eng.last_kernel_class}); inserts "
+          f"{(t1 - t0) * 1e3:.1f} ms, run_consensus {(t2 - t1) * 1e3:.1f} "
+          f"ms wall; {len(committed) / (t2 - t1):.1f} events committed/s "
+          f"over run_consensus, {len(committed) / (t2 - t0):.1f} over "
+          f"inserts + run_consensus; cfg e_cap {eng.cfg.e_cap} s_cap "
+          f"{eng.cfg.s_cap} r_cap {eng.cfg.r_cap} ({card})", flush=True)
+    print(f"[engine] catch-up == the JAX engine (commit length, digest, "
+          f"dispatch) and == walk step on round, witness, wslot, famous, "
+          f"lcr ({int(st.lcr)})", flush=True)
+    del eng, st
+
+    # (b) the live node
+    eng = TorchHashgraph(participants, verify_signatures=False, device=dev,
+                         **node_engine_kwargs())
+    build_s, collect_s = [0.0], [0.0]
+    eng.build_batch = timed(eng.build_batch, build_s)
+    eng._collect_ordered = timed(eng._collect_ordered, collect_s)
+    kinds, call_ms, insert_s, n_committed = [], [], 0.0, 0
+    caps, steps = (eng.cfg.e_cap, eng.cfg.r_cap), []
+    lo, drains = 0, 0
+    t_start = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        for ev in events[lo:lo + LIVE_CHUNK]:
+            eng.insert_event(ev.clone())
+        t1 = time.perf_counter()
+        out = eng.run_consensus()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        insert_s += t1 - t0
+        call_ms.append((t2 - t1) * 1e3)
+        kinds.append(eng.last_kernel_class)
+        n_committed += len(out)
+        if (eng.cfg.e_cap, eng.cfg.r_cap) != caps:
+            caps = (eng.cfg.e_cap, eng.cfg.r_cap)
+            steps.append((lo, caps))
+        if lo >= len(events):
+            drains += 1
+            if not out or drains >= DRAIN_MAX:
+                break
+        lo = min(lo + LIVE_CHUNK, len(events))
+    total_s = time.perf_counter() - t_start
+    got = engine_summary(eng, kinds)
+    check_engine("live", got)
+    if got["evicted"] <= 0:
+        raise AssertionError("the live node never compacted")
+    ms = np.array(call_ms)
+    lat = np.array([m for m, k in zip(call_ms, kinds) if k == "latency"])
+    thr = np.array([m for m, k in zip(call_ms, kinds) if k == "throughput"])
+    calls_s = ms.sum() / 1e3
+    host_s = insert_s + build_s[0] + collect_s[0]
+    print(f"[engine] live node ({node_engine_kwargs()}): {len(kinds)} "
+          f"calls ({drains} drain), {got['latency']} latency, "
+          f"{got['throughput']} throughput, flush_fallbacks "
+          f"{eng.flush_fallbacks}; per-call wall ms p50 "
+          f"{np.percentile(ms, 50):.3f}, p99 {np.percentile(ms, 99):.3f}, "
+          f"max {ms.max():.3f} (latency calls p50 "
+          f"{np.percentile(lat, 50):.3f}, throughput calls p50 "
+          f"{np.percentile(thr, 50) if len(thr) else float('nan'):.3f}); "
+          f"{n_committed / total_s:.1f} events committed/s over "
+          f"{total_s:.3f} s of inserts and calls ({card})", flush=True)
+    print(f"[engine] live node: growth (slot, (e_cap, r_cap)) {steps}; "
+          f"evicted {eng.dag.slot_base} slots, final live window "
+          f"{eng.dag.n_events - eng.dag.slot_base} events, consensus "
+          f"window {len(list(eng.consensus))}; stats "
+          f"{eng.stats_snapshot()}", flush=True)
+    print(f"[engine] live node host split: inserts {insert_s:.3f} s, "
+          f"build_batch {build_s[0]:.3f} s, _collect_ordered (with "
+          f"compaction) {collect_s[0]:.3f} s, rest of run_consensus (the "
+          f"flush) {calls_s - build_s[0] - collect_s[0]:.3f} s; host share "
+          f"{host_s / (insert_s + calls_s):.4f} of inserts + calls",
+          flush=True)
+    print(f"[engine] live node == the JAX engine (commit length "
+          f"{got['commit_length']}, digest, dispatch, lcr {got['lcr']}, "
+          f"evictions, capacities, fallbacks)", flush=True)
+
+
+def phase_block_fame(card: str, cfg, ingested) -> None:
+    """Block fame against the diagonal form on phase 4's ingested state."""
+    import torch
+
+    from babble_tpu_torch.ops import fame
+
+    for gate in (False, True):
+        box = {}
+        diag_ms = wall_ms(lambda: box.setdefault(
+            "d", fame.decide_fame_impl(cfg, ingested, gate)))
+        block_ms = wall_ms(lambda: box.setdefault(
+            "b", fame.decide_fame_block_impl(cfg, ingested, True, gate)))
+        d, b = box["d"], box["b"]
+        for f in ("famous", "lcr", "mbr", "fmr"):
+            if not torch.equal(getattr(d, f), getattr(b, f)):
+                raise AssertionError(f"block fame != diagonal (gate={gate}): {f}")
+        print(f"[engine] block fame == diagonal fame on phase 4's ingested "
+              f"state, gate={gate} (lcr {int(b.lcr)}): block "
+              f"{block_ms:.1f} ms, diagonal {diag_ms:.1f} ms wall ({card})",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -490,11 +697,20 @@ def main() -> int:
     kernel_resources()
 
     row = phase_kernel(dev)
-    launches, step_ms, out, cfg, dag = phase_slice(dev, card)
+    launches, step_ms, out, cfg, dag, ingested = phase_slice(dev, card)
     row["launches"] = launches
     print(f"[slice] la_walk share of the walk step: "
           f"{row['ms'] * launches / step_ms:.4f}", flush=True)
     phase_live(dev, card, out, cfg, dag)
+    from babble_tpu_torch.ops.pallas_ingest import la_walk
+
+    la_walk.launches = 0
+    phase_engine(dev, card, out, cfg, dag)
+    if la_walk.launches:
+        raise AssertionError("the engine path launched la_walk")
+    print("[engine] la_walk launches in the engine's flows: 0 (fd modes "
+          "incremental and full)", flush=True)
+    phase_block_fame(card, cfg, ingested)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [row]}), flush=True)

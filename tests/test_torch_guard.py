@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and runs a consensus step and a live stream with both blocked."""
+package nor msgpack (the card's machine has none), and runs a consensus
+step, a live stream and the engine with all three blocked."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ PORT = os.path.join(REPO, "babble_tpu_torch")
 
 
 def _banned(name: str) -> bool:
-    return name.split(".")[0] in ("jax", "jaxlib", "babble_tpu")
+    return name.split(".")[0] in ("jax", "jaxlib", "babble_tpu", "msgpack")
 
 
 def _port_sources():
@@ -41,7 +42,8 @@ def test_port_sources_import_no_jax():
 
 _BLOCKED_STEP = r"""
 import sys
-for name in ("jax", "jaxlib", "babble_tpu"):
+BLOCKED = ("jax", "jaxlib", "babble_tpu", "msgpack")
+for name in BLOCKED:
     sys.modules[name] = None
 import babble_tpu_torch as bt
 dag = bt.random_gossip_arrays(4, 200, seed=3)
@@ -54,7 +56,17 @@ for mode in ("walk", "fast"):
 from babble_tpu_torch.sim.live import live_stream
 live, log = live_stream(cfg, dag, 8, gate=True, device="cpu")
 assert int(live.lcr) > 0 and log[-1].k == 0, (int(live.lcr), log[-1])
-blocked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "babble_tpu")
+gen = bt.random_gossip_dag(4, 120, seed=3)
+eng = bt.TorchHashgraph(gen.participants, verify_signatures=False, device="cpu",
+                        e_cap=64, s_cap=16, r_cap=8, auto_compact=True,
+                        seq_window=8, compact_min=16, finality_gate=True)
+for i, ev in enumerate(gen.events):
+    eng.insert_event(ev)
+    if i % 16 == 15:
+        eng.run_consensus()
+eng.run_consensus()
+assert eng.commit_length > 0 and eng.dag.slot_base > 0, eng.stats_snapshot()
+blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
            and sys.modules[m] is not None]
 assert not blocked, blocked
 print("ok")

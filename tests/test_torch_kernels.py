@@ -161,3 +161,40 @@ def test_live_stream_on_card_matches_cpu(gate):
         [(r.k, r.W, r.F, r.lcr) for r in ref_log]
     for f, a, b in zip(ref._fields, ref, out):
         assert torch.equal(a, b.cpu()), f
+
+
+def _engine_run(device, kw, chunk):
+    """A small engine flow on ``device``: committed ids per call, the
+    commit digest and the final state on the host."""
+    from babble_tpu_torch import TorchHashgraph, random_gossip_dag
+
+    gen = random_gossip_dag(8, 600, seed=17)
+    eng = TorchHashgraph(gen.participants, verify_signatures=False,
+                         device=device, **kw)
+    calls = []
+    for lo in range(0, 600, chunk):
+        for ev in gen.events[lo:lo + chunk]:
+            eng.insert_event(ev.clone())
+        calls.append(([e.hex() for e in eng.run_consensus()],
+                      eng.last_kernel_class))
+    calls.append(([e.hex() for e in eng.run_consensus()],
+                  eng.last_kernel_class))
+    host = [None if t is None else t.cpu() for t in eng.state]
+    return calls, eng.commit_digest, eng.stats_snapshot(), host
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk,kw", [
+    # a live node: gated, auto dispatch, rolling windows from small caps
+    (32, dict(finality_gate=True, e_cap=64, s_cap=16, r_cap=8,
+              auto_compact=True, seq_window=16, compact_min=32)),
+    # catch-up: one bulk call on the throughput surface
+    (600, dict()),
+])
+def test_engine_on_card_matches_cpu(chunk, kw):
+    _need_card()
+    ref = _engine_run("cpu", kw, chunk)
+    out = _engine_run("cuda", kw, chunk)
+    assert out[:3] == ref[:3]
+    for a, b in zip(ref[3], out[3]):
+        assert (a is None and b is None) or torch.equal(a, b)

@@ -176,17 +176,22 @@ def test_consensus_step_matches(n, e, seed, mode):
     assert int(got.lcr) > 0 and int((got.rr[:e] >= 0).sum()) > 0
 
 
-def test_unported_modes_raise():
-    """Every fd mode of the JAX package is ported; block fame is not yet,
-    and a caller reaching it gets an error naming the ROADMAP item."""
+def test_unported_modes_raise(monkeypatch):
+    """Every fd mode of the JAX package is ported, and so is block fame:
+    past ``BLOCK_FAME_THRESHOLD`` the dispatch takes the block form
+    (tests/test_torch_engine.py holds it to JAX) where it used to
+    raise."""
     assert set(ingest.PORTED_FD_MODES) == {
         "incremental", "full", "fast", "walk", "absorb"}
     jcfg, cfg, _, _ = _setup(4, 300, 1)
     wide = cfg._replace(n=64, r_cap=1 << 17)
     assert fame.fame_mode(wide) == jfame.fame_mode(jcfg._replace(
         n=64, r_cap=1 << 17)) == "block"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fame.decide_fame_auto_impl(wide, None)
+    calls = []
+    monkeypatch.setattr(fame, "decide_fame_block_impl",
+                        lambda *a: calls.append(a) or "block")
+    assert fame.decide_fame_auto_impl(wide, None, False, True) == "block"
+    assert calls == [(wide, None, False, True)]
 
 
 def test_walk_rejects_unsupported_config():
