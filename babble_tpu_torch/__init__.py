@@ -9,8 +9,12 @@ torch tensor code, with the JAX package's one Pallas TPU kernel (the
 last-ancestor walk) rewritten by hand in CUDA for Hopper
 (``csrc/la_walk.cu``), and the consensus engine around them
 (``consensus/engine.py TorchHashgraph``: host DAG, batching, the
-latency/throughput dispatch, compaction, commit order and digest).  It
-imports torch, numpy and the standard library only.
+latency/throughput dispatch, compaction, commit order and digest, and
+the membership plane's join/leave epoch transitions), with its
+checkpoints and fast-forward snapshots (``store/``: the JAX package's
+FORMAT v6 bytes, restorable across the packages) and the crypto and
+msgpack they stand on (``crypto/``, ``codec.py``).  It imports torch,
+numpy and the standard library only.
 
 Entry points take an explicit ``device`` ("cuda" by default); pass
 ``device="cpu"`` to run every stage in plain torch on the CPU.
@@ -29,6 +33,8 @@ Entry points take an explicit ``device`` ("cuda" by default); pass
     for ev in events_from_arrays(dag):
         eng.insert_event(ev)
     committed = eng.run_consensus()
+    save_checkpoint(eng, "ckpt")
+    eng = load_checkpoint("ckpt")
 """
 
 from .consensus.engine import TorchHashgraph
@@ -40,14 +46,18 @@ from .ops.state import (
 from .sim.arrays import (
     ArrayDag, batch_from_arrays, events_from_arrays, random_gossip_arrays,
 )
-from .sim.generator import random_gossip_dag
+from .sim.generator import random_churn_dag, random_gossip_dag
 from .sim.live import live_stream
 from .step import consensus_step
+from .store.checkpoint import (
+    load_checkpoint, load_snapshot, save_checkpoint, snapshot_bytes,
+)
 
 __all__ = [
     "ArrayDag", "DagConfig", "DagState", "EventBatch", "TorchHashgraph",
     "assert_consensus_parity", "batch_from_arrays", "consensus_step",
-    "events_from_arrays", "init_state", "live_stream",
-    "random_gossip_arrays", "random_gossip_dag", "state_from_numpy",
-    "state_to_numpy",
+    "events_from_arrays", "init_state", "live_stream", "load_checkpoint",
+    "load_snapshot", "random_churn_dag", "random_gossip_arrays",
+    "random_gossip_dag", "save_checkpoint", "snapshot_bytes",
+    "state_from_numpy", "state_to_numpy",
 ]

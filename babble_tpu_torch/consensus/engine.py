@@ -22,10 +22,16 @@ Each ``run_consensus`` picks one of two surfaces:
   cover.
 Both commit the same order on the same flush sequence.
 
-Not in this port yet: membership and epoch transitions (a committed
-membership transaction raises ``NotImplementedError``), the AOT
-executable map (ROADMAP.md Queue 1, item 10, CUDA graphs) and wire
-conversion (item 5).  Entry points run on ``device`` ("cuda" unless the
+Membership plane: a committed, subject-signed join or leave
+(``membership/transition.py``) schedules an epoch transition at the
+decided-round boundary ``round_received + EPOCH_LAG``; later ones queue
+behind it.  Commits above a pending boundary are held until the engine
+re-shapes (``apply_epoch_transition``: a join appends a participant
+column, a leave retires one) and re-decides them under the new peer
+set.  ``membership_log`` is the chain of custody a joiner verifies.
+
+Not in this port yet: the AOT executable map (ROADMAP.md Queue 1, item
+10, CUDA graphs).  Entry points run on ``device`` ("cuda" unless the
 caller asks for the CPU).
 """
 
@@ -40,7 +46,8 @@ from torch.profiler import record_function
 
 from ..common import OffsetList
 from ..core.dag import HostDag
-from ..core.event import NOT_PORTED_CRYPTO, Event
+from ..core.event import Event, WireEvent
+from ..membership.transition import MEMBERSHIP_MAGIC, parse_membership_tx
 from ..ops import fame as fame_ops
 from ..ops import flush as flush_ops
 from ..ops import ingest as ingest_ops
@@ -56,6 +63,7 @@ from ..ops.state import (
     compact as compact_op,
     grow_state,
     init_state,
+    state_from_numpy,
     ts32_ok,
 )
 from .digest import CommitDigest
@@ -68,14 +76,18 @@ _FD_FULL_THRESHOLD = 2048  # batch size above which full FD recompute wins
 #: thousands)
 LATENCY_K_MAX = 256
 
-#: payload prefix of a membership transition transaction (the JAX
-#: package's ``membership/transition.py MEMBERSHIP_MAGIC``)
-MEMBERSHIP_MAGIC = b"\x00babble-member:v1:"
+#: membership plane: a committed transition takes effect at decided
+#: round ``round_received(tx) + EPOCH_LAG``
+EPOCH_LAG = 2
 
-NOT_PORTED_MEMBERSHIP = (
-    "membership and epoch transitions are not ported yet (ROADMAP.md "
-    "Queue 1: the engine's membership/epoch part)"
-)
+#: most transitions queued behind the pending boundary; equal to
+#: ``membership.epoch.PIPELINE_WINDOW`` (the verifier accepts exactly
+#: this stamp window)
+MEMBERSHIP_QUEUE_MAX = 64
+
+#: membership_log entries kept after truncation; older entries fold
+#: into (membership_base_epoch, membership_addrs)
+MEMBERSHIP_LOG_KEEP = 256
 
 
 def node_engine_kwargs(cache_size: int = 500) -> dict:
@@ -96,9 +108,6 @@ def node_engine_kwargs(cache_size: int = 500) -> dict:
 
 
 class TorchHashgraph:
-    # the membership plane's surface, fixed at epoch 0 in this port
-    epoch = 0
-
     def __init__(
         self,
         participants: Dict[str, int],
@@ -184,6 +193,22 @@ class TorchHashgraph:
         #: run the latency flush as three synchronised, timed phases
         #: (``ops/flush.probed_flush``; the same result)
         self.phase_probe = False
+
+        # membership plane: the validator set is consensus state (module
+        # docstring)
+        self.epoch = 0
+        self.pending_membership: Optional[dict] = None
+        self.membership_log: List[dict] = []
+        self.membership_rejects = 0
+        #: transitions committed while one is pending, applied FIFO at
+        #: successive boundaries
+        self.membership_queue: List[dict] = []
+        #: bounded membership_log: base epoch + truncated-join addresses
+        self.membership_log_keep = MEMBERSHIP_LOG_KEEP
+        self.membership_base_epoch = 0
+        self.membership_addrs: Dict[str, str] = {}
+        #: wall split of the last apply_epoch_transition (None before one)
+        self.last_transition: Optional[dict] = None
 
         self.consensus = OffsetList()             # hex ids in consensus order
         #: rolling hash chain over the committed order
@@ -415,9 +440,12 @@ class TorchHashgraph:
         roll the window.
 
         The JAX engine walks the live rows in slot order in Python; this
-        takes the same rows in the same order with numpy.  A committed
-        membership transaction raises before anything of the batch is
-        committed (not ported)."""
+        takes the same rows in the same order with numpy.  Every
+        candidate gets its round_received and consensus_timestamp.
+        Membership commit gate: while a transition is pending at
+        boundary B, events received in rounds > B are held (not
+        committed, not marked received); they are re-decided under the
+        new peer set once the epoch applies."""
         rr = self._arr("rr")
         cts = self._arr("cts")
         base = self.dag.slot_base
@@ -432,6 +460,7 @@ class TorchHashgraph:
             seen = np.fromiter(self._received, np.int64, len(self._received))
             got = got[~np.isin(got + base, seen)]
         if not len(got):
+            self._maybe_apply_membership()
             if self.auto_compact:
                 self.maybe_compact()
             return []
@@ -442,18 +471,21 @@ class TorchHashgraph:
             ev.round_received = int(rr[s])
             ev.consensus_timestamp = int(cts[s])
             candidates.append(ev)
-        for ev in candidates:
-            if any(bytes(tx).startswith(MEMBERSHIP_MAGIC)
-                   for tx in ev.transactions):
-                raise NotImplementedError(NOT_PORTED_MEMBERSHIP)
 
         candidates = consensus_sort(candidates, self._round_prn)
+        new_events: List[Event] = []
         for ev in candidates:
+            pend = self.pending_membership
+            if pend is not None and ev.round_received > pend["boundary"]:
+                # held: re-received and committed by the next epoch
+                continue
+            new_events.append(ev)
             self._received.add(self.dag.slot_of[ev.hex()])
             self.consensus.append(ev.hex())
             self._digest.note(ev.hex())
             self.consensus_transactions += len(ev.transactions)
-        self._ordered_total += len(candidates)
+            self._maybe_schedule_membership(ev)
+        self._ordered_total += len(new_events)
 
         lcr = int(self.state.lcr)
         self._lcr_cache = lcr
@@ -463,11 +495,12 @@ class TorchHashgraph:
                 np.count_nonzero(rounds[:ne] == lcr - 1)
             )
 
-        if self.commit_callback is not None:
-            self.commit_callback(candidates)
+        if self.commit_callback is not None and new_events:
+            self.commit_callback(new_events)
+        self._maybe_apply_membership()
         if self.auto_compact:
             self.maybe_compact()
-        return candidates
+        return new_events
 
     def run_consensus(self) -> List[Event]:
         events, _ = self.run_consensus_timed()
@@ -643,9 +676,188 @@ class TorchHashgraph:
             out = hr if out is None else min(out, hr)
         return int(INT32_MAX) if out is None else out
 
+    # ------------------------------------------------------------------
+    # membership plane: validator join/leave as a consensus operation
+
+    def _maybe_schedule_membership(self, ev: Event) -> None:
+        """Scan one just-committed event for valid membership
+        transactions.  The first valid one with no transition in flight
+        becomes the pending transition at boundary rr + EPOCH_LAG; later
+        ones queue behind it.  Runs on the commit path, so every check
+        is deterministic: the same transaction is queued (or rejected)
+        identically everywhere."""
+        for tx in ev.transactions:
+            if not tx.startswith(MEMBERSHIP_MAGIC):
+                continue
+            spec = parse_membership_tx(tx)
+            err = self._validate_membership(spec)
+            if err is not None:
+                self.membership_rejects += 1
+                continue
+            entry = {
+                "kind": spec.kind,
+                "pub": spec.pub_hex,
+                "addr": spec.net_addr,
+                "boundary": ev.round_received + EPOCH_LAG,
+                "position": len(self.consensus),
+                "tx": bytes(tx),
+            }
+            if self.pending_membership is None:
+                self.pending_membership = entry
+            else:
+                self.membership_queue.append(entry)
+
+    def _in_flight_membership(self) -> List[dict]:
+        head = [self.pending_membership] if self.pending_membership else []
+        return head + list(self.membership_queue)
+
+    def _validate_membership(self, spec) -> Optional[str]:
+        """Admissibility of a parsed transition against the projected
+        epoch state (the current peer set with every in-flight
+        transition applied).  The epoch stamp may name any epoch from
+        the current one through the projected apply epoch; a stale stamp
+        is rejected."""
+        if spec is None:
+            return "unparseable transition"
+        queue = self._in_flight_membership()
+        if len(queue) >= MEMBERSHIP_QUEUE_MAX:
+            return "transition queue full"
+        apply_epoch = self.epoch + len(queue)
+        if not (self.epoch <= spec.epoch <= apply_epoch):
+            return (
+                f"transition stamped epoch {spec.epoch}, valid range "
+                f"[{self.epoch}, {apply_epoch}]"
+            )
+        known = set(self.participants)
+        active = {
+            pub for pub, cid in self.participants.items()
+            if cid not in self.cfg.retired
+        }
+        for q in queue:
+            if q["kind"] == "join":
+                known.add(q["pub"])
+                active.add(q["pub"])
+            else:
+                active.discard(q["pub"])
+        if spec.kind == "join":
+            if spec.pub_hex in known:
+                return "join for an existing or queued participant"
+        else:
+            if spec.pub_hex not in known:
+                return "leave for an unknown participant"
+            if spec.pub_hex not in active:
+                return "leave for a retired or already-leaving participant"
+            if len(active) - 1 < 2:
+                return "leave would drop the fleet below 2 members"
+        if not spec.verify():
+            return "bad subject signature"
+        return None
+
+    def _maybe_apply_membership(self) -> None:
+        if self.pending_membership is None:
+            return
+        if int(self.state.lcr) >= self.pending_membership["boundary"]:
+            self.apply_epoch_transition()
+
+    def apply_epoch_transition(self) -> None:
+        """Re-shape the engine at the epoch boundary: every event
+        received in rounds <= B is committed (apply requires lcr >= B),
+        so decided history below B stays under the outgoing peer set and
+        everything above is reset and re-decided under the incoming one.
+
+        Join appends one participant column (survivor ids are stable);
+        leave retires the column in the config.  The host image of the
+        re-shaped state is copied onto the device (no tensor of the new
+        state shares memory with the host arrays, or with the old
+        state), then the rounds above the boundary are rescanned.
+        ``last_transition`` records its wall seconds, split into host,
+        upload and rescan, and the suspect count."""
+        from ..ops.epoch import epoch_transition_arrays
+
+        t0 = time.perf_counter()
+        spec = self.pending_membership
+        boundary = spec["boundary"]
+        old_cfg = self.cfg
+
+        # suspects must be read before the reset wipes their rounds
+        base = self.dag.slot_base
+        ne = self.dag.n_events - base
+        rnd = self._arr("round")
+        suspects = np.nonzero(rnd[:ne] > boundary)[0].astype(np.int32)
+
+        if spec["kind"] == "join":
+            cid = self.dag.add_participant(spec["pub"])
+            new_cfg = old_cfg._replace(n=old_cfg.n + 1)
+        else:
+            cid = self.participants[spec["pub"]]
+            new_cfg = old_cfg._replace(
+                retired=old_cfg.retired + (cid,)
+            )
+
+        arrays = epoch_transition_arrays(
+            old_cfg, new_cfg, self.state, boundary
+        )
+        t1 = time.perf_counter()
+        self.cfg = new_cfg
+        self.state = state_from_numpy(new_cfg, DagState(**arrays),
+                                      device=self.device)
+        self._view = {}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        if len(suspects):
+            self.state = ingest_ops.rescan_rounds_impl(
+                self.cfg, self.state,
+                torch.tensor(self._level_sched(suspects), device=self.device),
+            )
+            self._view = {}
+        self._max_round_cache = int(self.state.max_round)
+        self._lcr_cache = int(self.state.lcr)
+        t3 = time.perf_counter()
+        self.last_transition = {
+            "wall_s": t3 - t0, "host_s": t1 - t0, "upload_s": t2 - t1,
+            "rescan_s": t3 - t2, "suspects": int(len(suspects)),
+        }
+        # the reset wiped rr above the boundary: held events are
+        # undecided again, so the frontier mirror drops to the floor
+        self._frontier_cache = 0
+        self.epoch += 1
+        self.membership_log.append({
+            "epoch": self.epoch,
+            "kind": spec["kind"],
+            "pub": spec["pub"],
+            "addr": spec["addr"],
+            "boundary": boundary,
+            "position": spec["position"],
+            "cid": cid,
+            "tx": spec["tx"],
+        })
+        self._truncate_membership_log()
+        self.pending_membership = None
+        if self.membership_queue:
+            # promote the next queued transition; its boundary must clear
+            # the one just applied
+            nxt = dict(self.membership_queue.pop(0))
+            nxt["boundary"] = max(nxt["boundary"], boundary + 1)
+            self.pending_membership = nxt
+
+    def _truncate_membership_log(self) -> None:
+        """Bound membership_log: fold entries past the retention window
+        into (membership_base_epoch, membership_addrs)."""
+        keep = self.membership_log_keep
+        if not keep or len(self.membership_log) <= keep:
+            return
+        cut = self.membership_log[:-keep]
+        for e in cut:
+            if e["kind"] == "join":
+                self.membership_addrs[e["pub"]] = e["addr"]
+        self.membership_base_epoch = cut[-1]["epoch"]
+        self.membership_log = self.membership_log[-keep:]
+
     def _level_sched(self, sus: np.ndarray) -> np.ndarray:
         """Level-grouped rescan schedule for local slots ``sus`` (the
-        shape rescan_rounds_impl consumes)."""
+        shape rescan_rounds_impl consumes; shared by round repair and
+        epoch transitions)."""
         base = self.dag.slot_base
         lev = np.array(
             [self.dag.levels[base + int(s)] for s in sus], np.int64
@@ -676,8 +888,10 @@ class TorchHashgraph:
         (head round more than ``inactive_rounds`` decided rounds behind
         lcr), in which case ``dag.evicted_heads`` records the eviction
         horizon its return resumes from.  Returns the evicted count; a
-        no-op while host events are pending."""
-        if self.dag.pending:
+        no-op while host events are pending and while a membership
+        transition is pending (held commits must not be mistaken for an
+        evictable prefix)."""
+        if self.dag.pending or self.pending_membership is not None:
             return 0
         lcr = int(self.state.lcr)
         new_r_off = lcr - self.round_margin
@@ -764,11 +978,11 @@ class TorchHashgraph:
     # ------------------------------------------------------------------
     # wire conversion
 
-    def to_wire(self, event: Event):
-        raise NotImplementedError(NOT_PORTED_CRYPTO)
+    def to_wire(self, event: Event) -> WireEvent:
+        return self.dag.to_wire(event)
 
-    def read_wire_info(self, wevent, overlay=None) -> Event:
-        raise NotImplementedError(NOT_PORTED_CRYPTO)
+    def read_wire_info(self, wevent: WireEvent, overlay=None) -> Event:
+        return self.dag.read_wire_info(wevent, overlay)
 
     # ------------------------------------------------------------------
     # predicate surface (host queries against the state; tests + runtime)

@@ -17,10 +17,9 @@ ingest process a level per step.
 
 Bounded memory: every per-slot sequence is an ``OffsetList``; committed
 prefixes are evicted (``evict_prefix``) in lockstep with the device
-window, and reads below the window raise ``TooLateError``.
-
-Wire conversion needs the wire forms, which are not ported yet
-(ROADMAP.md Queue 1, item 5).
+window, and reads below the window raise ``TooLateError``.  Wire
+parent coordinates are captured at insert (``wire_meta``), so
+``to_wire`` never needs an evicted parent.
 """
 
 from __future__ import annotations
@@ -31,7 +30,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..common import OffsetList
-from .event import NOT_PORTED_CRYPTO, Event
+from ..crypto.keys import pub_hex_to_bytes
+from .event import Event, EventBody, WireEvent
 
 
 class InsertError(ValueError):
@@ -95,6 +95,19 @@ class HostDag:
     def slot_base(self) -> int:
         """First non-evicted slot (== the device state's e_off)."""
         return self.events.start
+
+    def add_participant(self, pub_hex: str) -> int:
+        """Admit a new creator at the next free participant id (ids of
+        existing creators stay: renumbering would scramble every
+        creator-indexed column).  Called only at an epoch boundary
+        (``TorchHashgraph.apply_epoch_transition``); returns the id."""
+        if pub_hex in self.participants:
+            raise ValueError(f"participant {pub_hex[:18]}… already known")
+        cid = len(self.participants)
+        self.participants[pub_hex] = cid
+        self.reverse_participants[cid] = pub_hex
+        self.chains.append(OffsetList())
+        return cid
 
     # ------------------------------------------------------------------
 
@@ -272,11 +285,58 @@ class HostDag:
     # ------------------------------------------------------------------
     # wire conversion (reference hashgraph.go:496-571)
 
-    def to_wire(self, event: Event):
-        raise NotImplementedError(NOT_PORTED_CRYPTO)
+    def to_wire(self, event: Event) -> WireEvent:
+        sp_index, op_cid, op_index = self.wire_meta[self.slot_of[event.hex()]]
+        return event.to_wire(
+            sp_index, op_cid, op_index, self.participants[event.creator]
+        )
 
-    def read_wire_info(self, wevent, overlay: Optional[dict] = None) -> Event:
-        raise NotImplementedError(NOT_PORTED_CRYPTO)
+    def read_wire_info(self, wevent: WireEvent,
+                       overlay: Optional[dict] = None) -> Event:
+        """Materialise a compact wire event, resolving its (creator,
+        index) parent references.  ``overlay`` maps (cid, index) -> hex
+        for events of the same batch that are converted but not yet
+        inserted."""
+        creator = self.reverse_participants[wevent.creator_id]
+        cid = wevent.creator_id
+
+        def resolve(rcid: int, idx: int) -> str:
+            if overlay is not None:
+                h = overlay.get((rcid, idx))
+                if h is not None:
+                    return h
+            horizon = self.evicted_heads.get(rcid)
+            if horizon is not None and horizon[0] == idx \
+                    and idx < self.chains[rcid].start:
+                # the referenced event was evicted, but its (index, hex)
+                # survives as the creator's eviction horizon
+                return horizon[1]
+            return self.events[self.chains[rcid][idx]].hex()
+
+        self_parent = ""
+        other_parent = ""
+        if wevent.self_parent_index >= 0:
+            self_parent = resolve(cid, wevent.self_parent_index)
+        if wevent.other_parent_index >= 0:
+            other_parent = resolve(
+                wevent.other_parent_creator_id, wevent.other_parent_index
+            )
+        body = EventBody(
+            transactions=list(wevent.transactions),
+            self_parent=self_parent,
+            other_parent=other_parent,
+            creator=pub_hex_to_bytes(creator),
+            timestamp=wevent.timestamp,
+            index=wevent.index,
+        )
+        return Event(body=body, r=wevent.r, s=wevent.s)
+
+    def participant_events(self, creator: str, skip: int) -> List[str]:
+        """Event hexes of ``creator`` with seq >= skip (the gossip diff
+        unit, reference node/core.go:108-132); ``TooLateError`` when
+        ``skip`` falls below the rolling window."""
+        cid = self.participants[creator]
+        return [self.events[s].hex() for s in self.chains[cid][skip:]]
 
     def known(self) -> Dict[int, int]:
         return {cid: len(chain) for cid, chain in enumerate(self.chains)}

@@ -1,96 +1,48 @@
 """Hashgraph events: the DAG's vertices (the port's copy of the JAX
-package's ``core/event.py`` identity half).
+package's ``core/event.py``).
 
 - ``EventBody`` (reference event.go:29-42) with int64-nanosecond
   timestamps; its ``canonical_bytes`` are the msgpack encoding of
-  ``[txs, self_parent, other_parent, creator, timestamp, index]`` with
-  ``use_bin_type=True``, written here by hand (``_pack``) for exactly
-  the types a body holds, so the port needs no msgpack package.  Event
-  ids, the coin bit, the order's whitening and the commit digest all
-  hash these bytes: one wrong byte changes the committed order.
+  ``[txs, self_parent, other_parent, creator, timestamp, index]``,
+  written by the port's own codec (``codec.packb``), so the port needs
+  no msgpack package.  Event ids, the coin bit, the order's whitening
+  and the commit digest all hash these bytes: one wrong byte changes
+  the committed order.
 - SHA-256 identity hash over body + signature scalars; hex id "0x..."
   (event.go:169-186).
-
-Signing, ``verify`` and the wire forms need the crypto module, which is
-not ported yet (ROADMAP.md Queue 1, item 5).
+- ECDSA (r, s) signature over the body digest (event.go:131-150), by
+  the port's pure-Python P-256 backend (``crypto/keys.py``).
+- ``WireEvent``: the compact wire form, parents as (creator id, index)
+  ints (event.go:244-259); ``FullWireEvent``: parents as hashes and the
+  creator as its key, the form checkpoints store.
 """
 
 from __future__ import annotations
 
-import hashlib
-import struct
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
+from ..codec import packb
+from ..crypto import keys as ck
+
 # Signature scalars are P-256 field elements: 32 bytes each.
 _SCALAR_BYTES = 32
-
-NOT_PORTED_CRYPTO = (
-    "signatures and wire forms are not ported yet (ROADMAP.md Queue 1, "
-    "item 5: the node runtime's crypto and wire forms)"
-)
 
 
 def _int_to_b32(v: int) -> bytes:
     return v.to_bytes(_SCALAR_BYTES, "big")
 
 
-def _sized(n: int, fix: Optional[Tuple[int, int]], tags) -> bytes:
-    """Header of a msgpack str/bin/array of length ``n``: the fix form
-    ``(base, limit)`` when it fits, else the 8/16/32-bit length form
-    (``tags`` maps a length width to its type byte)."""
-    if fix is not None and n < fix[1]:
-        return bytes([fix[0] | n])
-    for width, fmt in ((8, ">B"), (16, ">H"), (32, ">I")):
-        if width in tags and n < (1 << width):
-            return bytes([tags[width]]) + struct.pack(fmt, n)
-    raise ValueError(f"msgpack object of length {n} is too long")
-
-
-def _pack_int(v: int) -> bytes:
-    """The smallest msgpack int form of ``v``, chosen as msgpack-python
-    chooses it (unsigned forms for v >= 0, signed ones below)."""
-    if 0 <= v <= 0x7F:
-        return bytes([v])
-    if -0x20 <= v < 0:
-        return struct.pack(">b", v)
-    if v > 0:
-        for tag, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
-                              (0xCE, ">I", 0xFFFFFFFF),
-                              (0xCF, ">Q", 0xFFFFFFFFFFFFFFFF)):
-            if v <= top:
-                return bytes([tag]) + struct.pack(fmt, v)
-    else:
-        for tag, fmt, bits in ((0xD0, ">b", 8), (0xD1, ">h", 16),
-                               (0xD2, ">i", 32), (0xD3, ">q", 64)):
-            if v >= -(1 << (bits - 1)):
-                return bytes([tag]) + struct.pack(fmt, v)
-    raise OverflowError(f"integer {v} does not fit msgpack's 64 bits")
-
-
-def _pack(obj) -> bytes:
-    """msgpack ``packb(obj, use_bin_type=True)`` for the types of an
-    event body: list, str, bytes-like and int (bool refused)."""
-    if isinstance(obj, bool):
-        raise TypeError("bool has no place in an event body")
-    if isinstance(obj, int):
-        return _pack_int(obj)
-    if isinstance(obj, str):
-        b = obj.encode("utf-8")
-        return _sized(len(b), (0xA0, 32),
-                      {8: 0xD9, 16: 0xDA, 32: 0xDB}) + b
-    if isinstance(obj, (bytes, bytearray, memoryview)):
-        b = bytes(obj)
-        return _sized(len(b), None, {8: 0xC4, 16: 0xC5, 32: 0xC6}) + b
-    if isinstance(obj, (list, tuple)):
-        return _sized(len(obj), (0x90, 16), {16: 0xDC, 32: 0xDD}) + \
-            b"".join(_pack(x) for x in obj)
-    raise TypeError(f"cannot encode {type(obj).__name__} in an event body")
-
-
-def sha256(data: bytes) -> bytes:
-    return hashlib.sha256(data).digest()
+def _check_wire_bytes(v) -> bytes:
+    """Type gate for peer-decoded byte fields: a decoder can return an
+    int where bytes were expected, and ``bytes(2**40)`` allocates that
+    many zeros.  Copying a materialised bytes-like is bounded by the
+    frame that carried it."""
+    if not isinstance(v, (bytes, bytearray, memoryview)):
+        raise TypeError(
+            f"wire field must be bytes-like, got {type(v).__name__}")
+    return bytes(v)
 
 
 def middle_bit(hash_bytes: bytes) -> bool:
@@ -109,7 +61,7 @@ class EventBody:
     index: int            # sequence number within creator's own chain
 
     def canonical_bytes(self) -> bytes:
-        return _pack([
+        return packb([
             list(self.transactions),
             self.self_parent,
             self.other_parent,
@@ -119,7 +71,7 @@ class EventBody:
         ])
 
     def digest(self) -> bytes:
-        return sha256(self.canonical_bytes())
+        return ck.sha256(self.canonical_bytes())
 
 
 @dataclass
@@ -172,7 +124,7 @@ class Event:
         if self._hash is None:
             if self.r is None or self.s is None:
                 raise ValueError("event is unsigned")
-            self._hash = sha256(
+            self._hash = ck.sha256(
                 self.body.canonical_bytes() + _int_to_b32(self.r)
                 + _int_to_b32(self.s)
             )
@@ -192,8 +144,147 @@ class Event:
         engine-assigned consensus fields (round_received, timestamps)."""
         return Event(body=self.body, r=self.r, s=self.s)
 
+    # --- crypto -----------------------------------------------------------
+
+    def sign(self, key: ck.KeyPair) -> None:
+        self.r, self.s = key.sign_digest(self.body.digest())
+        self._hash = None
+        self._hex = None
+
     def verify(self) -> bool:
-        raise NotImplementedError(NOT_PORTED_CRYPTO)
+        if self.r is None or self.s is None:
+            return False
+        try:
+            pub = ck.from_pub_bytes(self.body.creator)
+        except ValueError:
+            return False
+        return ck.verify(pub, self.body.digest(), self.r, self.s)
+
+    # --- wire -------------------------------------------------------------
+
+    def to_wire(
+        self, self_parent_index: int, other_parent_creator_id: int,
+        other_parent_index: int, creator_id: int,
+    ) -> "WireEvent":
+        return WireEvent(
+            transactions=list(self.body.transactions),
+            self_parent_index=self_parent_index,
+            other_parent_creator_id=other_parent_creator_id,
+            other_parent_index=other_parent_index,
+            creator_id=creator_id,
+            timestamp=self.body.timestamp,
+            index=self.body.index,
+            r=self.r,
+            s=self.s,
+        )
+
+
+@dataclass
+class WireEvent:
+    """Compact wire form: parents as (creatorID, index) ints
+    (event.go:244-259)."""
+
+    transactions: List[bytes]
+    self_parent_index: int
+    other_parent_creator_id: int
+    other_parent_index: int
+    creator_id: int
+    timestamp: int
+    index: int
+    r: int
+    s: int
+
+    def pack(self) -> list:
+        return [
+            list(self.transactions),
+            self.self_parent_index,
+            self.other_parent_creator_id,
+            self.other_parent_index,
+            self.creator_id,
+            self.timestamp,
+            self.index,
+            _int_to_b32(self.r),
+            _int_to_b32(self.s),
+        ]
+
+    @classmethod
+    def unpack(cls, obj: list) -> "WireEvent":
+        (txs, spi, opc, opi, cid, ts, idx, r, s) = obj
+        return cls(
+            transactions=[_check_wire_bytes(t) for t in txs],
+            self_parent_index=spi,
+            other_parent_creator_id=opc,
+            other_parent_index=opi,
+            creator_id=cid,
+            timestamp=ts,
+            index=idx,
+            r=int.from_bytes(r, "big"),
+            s=int.from_bytes(s, "big"),
+        )
+
+
+@dataclass
+class FullWireEvent:
+    """Self-contained wire form: parents as hashes, creator as its key
+    (8 fields against the compact form's 9).  Checkpoints store events
+    in this form: a restore must not need evicted parents."""
+
+    transactions: List[bytes]
+    self_parent: str
+    other_parent: str
+    creator: bytes
+    timestamp: int
+    index: int
+    r: int
+    s: int
+
+    def pack(self) -> list:
+        return [
+            list(self.transactions),
+            self.self_parent,
+            self.other_parent,
+            self.creator,
+            self.timestamp,
+            self.index,
+            _int_to_b32(self.r),
+            _int_to_b32(self.s),
+        ]
+
+    @classmethod
+    def unpack(cls, obj: list) -> "FullWireEvent":
+        (txs, sp, op, creator, ts, idx, r, s) = obj
+        return cls(
+            transactions=[_check_wire_bytes(t) for t in txs],
+            self_parent=sp, other_parent=op,
+            creator=_check_wire_bytes(creator),
+            timestamp=ts, index=idx,
+            r=int.from_bytes(r, "big"), s=int.from_bytes(s, "big"),
+        )
+
+    @classmethod
+    def from_event(cls, ev: Event) -> "FullWireEvent":
+        return cls(
+            transactions=list(ev.body.transactions),
+            self_parent=ev.body.self_parent,
+            other_parent=ev.body.other_parent,
+            creator=ev.body.creator,
+            timestamp=ev.body.timestamp,
+            index=ev.body.index,
+            r=ev.r, s=ev.s,
+        )
+
+    def to_event(self) -> Event:
+        return Event(
+            body=EventBody(
+                transactions=list(self.transactions),
+                self_parent=self.self_parent,
+                other_parent=self.other_parent,
+                creator=self.creator,
+                timestamp=self.timestamp,
+                index=self.index,
+            ),
+            r=self.r, s=self.s,
+        )
 
 
 def new_event(

@@ -101,6 +101,18 @@ class DagConfig(NamedTuple):
         return int(torch.iinfo(self.coord_dtype).max)
 
 
+def config_from_fields(fields) -> DagConfig:
+    """Rebuild a DagConfig from its serialised field list (checkpoint
+    meta).  msgpack round-trips the ``retired`` tuple as a list:
+    normalise it back so the config stays hashable and comparable."""
+    cfg = DagConfig(*fields)
+    if not isinstance(cfg.retired, tuple):
+        cfg = cfg._replace(
+            retired=tuple(int(c) for c in (cfg.retired or ()))
+        )
+    return cfg
+
+
 def coord16_ok(s_cap: int) -> bool:
     """int16 coordinates are exact when every seq (plus slack) stays
     clear of the INF sentinel."""
@@ -410,6 +422,23 @@ def repack_round_bits(cfg: DagConfig, state: DagState) -> DagState:
     mb = state.mbit[ws] & valid
     fm = (state.famous == FAME_TRUE) & valid
     return state._replace(mbr=pack_bits(mb), fmr=pack_bits(fm))
+
+
+def repack_round_bits_np(cfg: DagConfig, wslot: np.ndarray,
+                         famous: np.ndarray, mbit: np.ndarray):
+    """Numpy twin of ``repack_round_bits`` for host-side rebuilds: epoch
+    re-shapes (the lane count re-buckets when a join widens the
+    participant axis) and checkpoint restore (the planes are re-packed,
+    never trusted).  Bit order matches ``ops/pack.py``:
+    ``np.packbits(..., bitorder="little")``."""
+    valid = wslot >= 0
+    ws = np.where(valid, wslot, cfg.e_cap)
+    mb = mbit[np.clip(ws, 0, cfg.e_cap)] & valid
+    fm = (famous == FAME_TRUE) & valid
+    lp = cfg.lp
+    mbr = np.packbits(mb, axis=-1, bitorder="little")[..., :lp]
+    fmr = np.packbits(fm, axis=-1, bitorder="little")[..., :lp]
+    return mbr.astype(np.uint8), fmr.astype(np.uint8)
 
 
 # Consensus-observable tensors: every decision the pipeline emits.

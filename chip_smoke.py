@@ -69,12 +69,36 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    with fd modes "incremental" and "full", never "walk"), which the
    phase checks on la_walk's count.
 
+7. churn — the membership plane and the checkpoint: 64 founders with
+   real P-256 identities (``random_churn_dag(64, 65536, seed=7,
+   CHURN_SCHEDULE)``) through the engine a ``Node`` builds, 256 events a
+   call, then drained.  Two joins (the second queued behind the first),
+   a garbage and a forged membership transaction (both rejected), both
+   joiners minting from their slots, then a leave of founder 5, who
+   stops minting later.  Two restarts inside the flow: files
+   (``save_checkpoint`` + ``load_checkpoint``) at the first call after
+   which one transition is pending and another queued, and bytes
+   (``snapshot_bytes`` + ``load_snapshot``) at slot 49,152, after the
+   third transition; each restored engine must equal the saving one on
+   every DagState field and the host mirrors, and the flow continues in
+   it.  The flow is held to the JAX engine's (``CHURN_EXPECT``: commit
+   length and digest, epoch, membership log, rejects, final config,
+   calls per surface, fallbacks, evictions; made on the CPU by
+   ``JAX_PLATFORMS=cpu python -m tests.test_torch_churn``).  The golden
+   v3/v4/v5 checkpoints in ``tests/golden/checkpoints`` restore on the
+   card and extend, held to ``GOLDEN_EXPECT``.  It prints per-call wall
+   ms and events committed per second, each epoch transition's wall ms
+   (host numpy, upload, rescan; suspects), each restart's save and load
+   ms and bytes, and ``Event.verify`` per event over 256 signed events.
+   The phase launches la_walk 0 times.
+
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -125,6 +149,46 @@ ENGINE_EXPECT = {
 }
 # most empty calls the live node's drain makes
 DRAIN_MAX = 64
+
+# phase 7: the churn flow (tests/test_torch_churn.py CHURN and
+# CHURN_SCHEDULE: (slot, action, member, epoch); members 64 and 65 are
+# the joiners, 66 the subject of the forged join)
+CHURN = dict(n=64, e=65536, seed=7, chunk=256, snap_slot=49152)
+CHURN_SCHEDULE = [
+    (8192, "join", 64, 0), (8448, "join", 65, 0),
+    (12288, "garbage", 0, 0), (12544, "forged", 66, 0),
+    (20480, "start", 64, 1), (24576, "start", 65, 2),
+    (32768, "leave", 5, 2), (40960, "stop", 5, 0),
+]
+# the JAX engine over that flow with the same two restarts (counters
+# that a restart does not carry are summed over the engines), and the
+# golden checkpoints restored and extended with random_gossip_dag(3, 72,
+# seed=11)[48:], from a CPU run of ``JAX_PLATFORMS=cpu python -m
+# tests.test_torch_churn`` (chip_reference)
+CHURN_EXPECT = dict(
+    commit_length=62693, commit_digest=(
+        "4f0164e113bcc281761931e0bd2e5b9d8f9d8007ad2d46b2200efc31ab3f57b5"),
+    epoch=3, membership_log=[
+        [1, "join", 64, 14, 8103, "779c49a2"],
+        [2, "join", 65, 15, 8402, "276c4605"],
+        [3, "leave", 5, 49, 32746, "84dce3c8"],
+    ],
+    membership_rejects=2, n=66, retired=[5], e_cap=64000,
+    r_cap=64, calls=257, latency=215, throughput=42,
+    flush_fallbacks=19, evicted=8871,
+    restarts={"files": 10496, "bytes": 49152},
+)
+GOLDEN_EXPECT = {
+    "v3": dict(commit_length=26, commit_digest=(
+        "d45bcb52ebb4cc0bf1f3391f168884b95d0c39615cc3e37108cdfd18227b2098")),
+    "v4": dict(commit_length=40, commit_digest=(
+        "0768605e12ce3b635cfd4626aecceb89e14a9028915393da407e1329b8954914")),
+    "v5": dict(commit_length=40, commit_digest=(
+        "0768605e12ce3b635cfd4626aecceb89e14a9028915393da407e1329b8954914")),
+}
+GOLDEN_DAG = dict(n=3, e=72, seed=11, prefix=48)
+# really signed events Event.verify is timed over
+VERIFY_EVENTS = 256
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
 PEAK_BYTES_S = 3.35e12
@@ -676,6 +740,240 @@ def phase_block_fame(card: str, cfg, ingested) -> None:
               flush=True)
 
 
+#: host mirrors a restored engine must hold as the saving one did (the
+#: frontier mirror restarts at its floor, and counters are metrics)
+MIRRORS = ("cfg", "participants", "epoch", "pending_membership",
+           "membership_queue", "membership_log", "membership_base_epoch",
+           "membership_addrs", "_r_off", "_lcr_cache", "_max_round_cache",
+           "_received", "_ordered_total", "consensus_transactions",
+           "last_committed_round_events", "commit_digest", "commit_length",
+           "auto_compact", "seq_window", "round_margin", "compact_min",
+           "consensus_window", "inactive_rounds")
+
+
+def check_restored(kind: str, a, b) -> None:
+    """``b`` (restored) equals ``a`` (saving) on every DagState field and
+    the host mirrors."""
+    import torch
+
+    for f, x, y in zip(a.state._fields, a.state, b.state):
+        if not (x.dtype == y.dtype and x.shape == y.shape
+                and x.device == y.device and torch.equal(x, y)):
+            raise AssertionError(f"{kind} restart: state {f} differs")
+    for f in MIRRORS:
+        if getattr(a, f) != getattr(b, f):
+            raise AssertionError(f"{kind} restart: {f} differs")
+    da, db = a.dag, b.dag
+    if list(a.consensus) != list(b.consensus) or \
+            a.consensus.start != b.consensus.start:
+        raise AssertionError(f"{kind} restart: consensus window differs")
+    for f in ("levels", "sp_slot", "op_slot", "wire_meta", "eff_ts"):
+        if list(getattr(da, f)) != list(getattr(db, f)):
+            raise AssertionError(f"{kind} restart: dag {f} differs")
+    if [e.hex() for e in da.events] != [e.hex() for e in db.events] or \
+            da.slot_base != db.slot_base or da.slot_of != db.slot_of or \
+            da.evicted_heads != db.evicted_heads or \
+            [(c.start, list(c)) for c in da.chains] != \
+            [(c.start, list(c)) for c in db.chains]:
+        raise AssertionError(f"{kind} restart: host DAG differs")
+
+
+def phase_churn(dev, card: str) -> None:
+    """The churn flow with its two restarts, the golden checkpoints and
+    the verify timing (module docstring, phase 7)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from babble_tpu_torch import TorchHashgraph
+    from babble_tpu_torch.consensus.engine import node_engine_kwargs
+    from babble_tpu_torch.core.event import new_event
+    from babble_tpu_torch.sim.generator import (
+        feed_churn, random_churn_dag, random_gossip_dag,
+    )
+    from babble_tpu_torch.store import (
+        load_checkpoint, load_snapshot, save_checkpoint, snapshot_bytes,
+    )
+
+    t0 = time.perf_counter()
+    dag = random_churn_dag(CHURN["n"], CHURN["e"], CHURN["seed"],
+                           CHURN_SCHEDULE)
+    print(f"[churn] {len(dag.events)} events over {CHURN['n']} founders and "
+          f"{len(dag.keys) - CHURN['n']} other identities built on the host "
+          f"in {time.perf_counter() - t0:.2f} s; transactions at "
+          f"{sorted(dag.txs.items())}, joiners start at "
+          f"{sorted(dag.starts.items())}", flush=True)
+    transitions, restarts = [], []
+    tmp = tempfile.mkdtemp(prefix="babble-churn-")
+
+    def restart(eng, kind):
+        torch.cuda.synchronize()
+        if kind == "files":
+            path = os.path.join(tmp, "ckpt")
+            t0 = time.perf_counter()
+            save_checkpoint(eng, path)
+            t1 = time.perf_counter()
+            back = load_checkpoint(path, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            sizes = {f: os.path.getsize(os.path.join(path, f))
+                     for f in ("meta.msgpack", "device.npz")}
+        else:
+            t0 = time.perf_counter()
+            snap = snapshot_bytes(eng)
+            t1 = time.perf_counter()
+            back = load_snapshot(snap, verify_events=False, device=dev,
+                                 expected_participants=dict(eng.participants))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            sizes = {"snapshot": len(snap)}
+        check_restored(kind, eng, back)
+        back.finality_gate = True     # the live path's gate (a Node sets it)
+        restarts.append(dict(kind=kind, slot=hi, save_ms=(t1 - t0) * 1e3,
+                             load_ms=(t2 - t1) * 1e3, window=(
+                                 back.dag.n_events - back.dag.slot_base),
+                             epoch=back.epoch, **sizes))
+        print(f"[churn] restart from {kind} after slot {hi}: save "
+              f"{(t1 - t0) * 1e3:.1f} ms, load {(t2 - t1) * 1e3:.1f} ms, "
+              f"{sizes} bytes, live window {restarts[-1]['window']} events, "
+              f"epoch {back.epoch}; restored == saving engine on every "
+              f"DagState field and the host mirrors ({card})", flush=True)
+        return back
+
+    eng = TorchHashgraph(dict(dag.participants), verify_signatures=False,
+                         device=dev, **node_engine_kwargs())
+    kinds, call_ms, slots, marks, n_committed = [], [], [], {}, 0
+    carried = {"membership_rejects": 0, "flush_fallbacks": 0}
+    lo, drains, e = 0, 0, len(dag.events)
+    t_start = time.perf_counter()
+    while True:
+        hi = min(lo + CHURN["chunk"], e)
+        feed_churn(eng, dag, lo, hi)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = eng.run_consensus()
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t1) * 1e3)
+        slots.append(hi)
+        kinds.append(eng.last_kernel_class)
+        n_committed += len(out)
+        if eng.epoch > len(transitions):
+            # one transition at most a call: the next one's boundary is
+            # past the applied one's
+            transitions.append(dict(eng.last_transition, epoch=eng.epoch))
+        for kind, due in (("files", eng.pending_membership is not None
+                           and bool(eng.membership_queue)),
+                          ("bytes", hi == CHURN["snap_slot"])):
+            if due and kind not in marks:
+                marks[kind] = hi
+                for k in carried:
+                    carried[k] += getattr(eng, k)
+                eng = restart(eng, kind)
+        if lo >= e:
+            drains += 1
+            if not out or drains >= DRAIN_MAX:
+                break
+        lo = hi
+    total_s = time.perf_counter() - t_start
+    for k in carried:
+        carried[k] += getattr(eng, k)
+    got = dict(
+        commit_length=eng.commit_length, commit_digest=eng.commit_digest,
+        epoch=eng.epoch, membership_log=[
+            [x["epoch"], x["kind"], x["cid"], x["boundary"], x["position"],
+             hashlib.sha256(x["tx"]).hexdigest()[:8]]
+            for x in eng.membership_log],
+        membership_rejects=carried["membership_rejects"],
+        n=eng.cfg.n, retired=list(eng.cfg.retired), e_cap=eng.cfg.e_cap,
+        r_cap=eng.cfg.r_cap, calls=len(kinds),
+        latency=kinds.count("latency"), throughput=kinds.count("throughput"),
+        flush_fallbacks=carried["flush_fallbacks"],
+        evicted=eng.dag.slot_base, restarts=marks,
+    )
+    if got != CHURN_EXPECT:
+        diff = {k: (got[k], v) for k, v in CHURN_EXPECT.items()
+                if got[k] != v}
+        raise AssertionError(f"churn flow != the JAX engine's (port, JAX): "
+                             f"{diff}")
+    ms = np.array(call_ms)
+    slow = sorted(zip(call_ms, slots, kinds), reverse=True)[:3]
+    print(f"[churn] live node with churn: {len(kinds)} calls ({drains} "
+          f"drain), {got['latency']} latency, {got['throughput']} "
+          f"throughput, flush_fallbacks {got['flush_fallbacks']}; per-call "
+          f"wall ms p50 {np.percentile(ms, 50):.3f}, p99 "
+          f"{np.percentile(ms, 99):.3f}, max {ms.max():.3f}; "
+          f"{n_committed / total_s:.1f} events committed/s over "
+          f"{total_s:.3f} s of inserts, calls and restarts ({card}); "
+          f"slowest calls (ms, slot, surface): " + ", ".join(
+              f"({m:.1f}, {sl}, {k})" for m, sl, k in slow), flush=True)
+    for t in transitions:
+        print(f"[churn] epoch transition to epoch {t['epoch']}: "
+              f"{t['wall_s'] * 1e3:.1f} ms wall = host numpy "
+              f"{t['host_s'] * 1e3:.1f} + upload {t['upload_s'] * 1e3:.1f} + "
+              f"rescan {t['rescan_s'] * 1e3:.1f} ms, {t['suspects']} "
+              f"suspects ({card})", flush=True)
+    first = eng.dag.events[eng.dag.slot_base]
+    cid = eng.participants[first.creator]
+    print(f"[churn] evicted {eng.dag.slot_base} slots; the first live slot "
+          f"holds creator {cid}'s seq {first.index} of "
+          f"{len(eng.dag.chains[cid])}, live window "
+          f"{eng.dag.n_events - eng.dag.slot_base} events", flush=True)
+    print(f"[churn] == the JAX engine: commit length {got['commit_length']}, "
+          f"digest, epoch {got['epoch']}, log {got['membership_log']}, "
+          f"rejects {got['membership_rejects']}, cfg n {got['n']} retired "
+          f"{got['retired']} e_cap {got['e_cap']} r_cap {got['r_cap']}, "
+          f"calls, evicted {got['evicted']}", flush=True)
+
+    # the golden checkpoints, restored on the card and extended
+    g = GOLDEN_DAG
+    gdag = random_gossip_dag(g["n"], g["e"], seed=g["seed"])
+    here = os.path.dirname(os.path.abspath(__file__))
+    for v in (3, 4, 5):
+        geng = load_checkpoint(os.path.join(
+            here, "tests", "golden", "checkpoints", f"v{v}"), device=dev)
+        if geng.state.sp.device.type != torch.device(dev).type:
+            raise AssertionError("golden restore did not land on the card")
+        for ev in gdag.events[g["prefix"]:]:
+            geng.insert_event(ev.clone())
+        geng.run_consensus()
+        gg = dict(commit_length=geng.commit_length,
+                  commit_digest=geng.commit_digest)
+        if gg != GOLDEN_EXPECT[f"v{v}"]:
+            raise AssertionError(f"golden v{v} extended {gg} != JAX's "
+                                 f"{GOLDEN_EXPECT[f'v{v}']}")
+    print(f"[churn] golden v3/v4/v5 checkpoints restored on the card and "
+          f"extended == the JAX package's (commit length and digest)",
+          flush=True)
+
+    # Event.verify over really signed events
+    keys = dag.keys[:8]
+    signed = []
+    t0 = time.perf_counter()
+    for i in range(VERIFY_EVENTS):
+        ev = new_event([b"tx%d" % i], ("", ""), keys[i % 8].pub_bytes, 0,
+                       timestamp=1_700_000_000_000_000_000 + i)
+        ev.sign(keys[i % 8])
+        signed.append(ev)
+    sign_us = (time.perf_counter() - t0) / VERIFY_EVENTS * 1e6
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ok = all(ev.verify() for ev in signed)
+        passes.append((time.perf_counter() - t0) / VERIFY_EVENTS * 1e6)
+        if not ok:
+            raise AssertionError("a signed event failed Event.verify")
+    if signed[0].clone().verify() is not True or new_event(
+            [b"x"], ("", ""), keys[0].pub_bytes, 0, 1).verify():
+        raise AssertionError("Event.verify accepted an unsigned event")
+    print(f"[churn] Event.verify over {VERIFY_EVENTS} signed events by 8 "
+          f"keys: {passes[0]:.1f} us/event first pass (one comb table "
+          f"built per key), {passes[1]:.1f} us/event warm; sign "
+          f"{sign_us:.1f} us/event (host CPU of the card's machine)",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -711,6 +1009,12 @@ def main() -> int:
     print("[engine] la_walk launches in the engine's flows: 0 (fd modes "
           "incremental and full)", flush=True)
     phase_block_fame(card, cfg, ingested)
+
+    la_walk.launches = 0
+    phase_churn(dev, card)
+    if la_walk.launches:
+        raise AssertionError("the churn flow launched la_walk")
+    print("[churn] la_walk launches in phase 7: 0", flush=True)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [row]}), flush=True)

@@ -51,7 +51,8 @@ from babble_tpu.sim import arrays as jarrays
 from babble_tpu.sim import generator as jgen
 
 from babble_tpu_torch import TorchHashgraph, events_from_arrays
-from babble_tpu_torch import common, random_gossip_arrays, random_gossip_dag
+from babble_tpu_torch import codec, common, random_gossip_arrays
+from babble_tpu_torch import random_gossip_dag
 from babble_tpu_torch.consensus import digest, engine as pengine
 from babble_tpu_torch.consensus.ordering import consensus_sort
 from babble_tpu_torch.core import dag as pdag
@@ -184,12 +185,13 @@ def test_msgpack_encoder_edges():
     objs = _INT_EDGES + ["", "a" * 31, "a" * 32, "b" * 255, "c" * 256,
                          "d" * 65536, "é", b"", b"x" * 255, b"x" * 256,
                          bytearray(b"ab"), [], list(range(15)),
-                         list(range(16)), [[1, [2, b"3"]], "4"]]
+                         list(range(16)), [[1, [2, b"3"]], "4"],
+                         True, False, None, {"a": [None, True]}]
     for o in objs:
-        assert pevent._pack(o) == msgpack.packb(o, use_bin_type=True), o
-    for bad in (True, 1.5, None, 2**64, -2**63 - 1):
+        assert codec.packb(o) == msgpack.packb(o, use_bin_type=True), o
+    for bad in (1.5, 2**64, -2**63 - 1, np.int64(3), {1, 2}):
         with pytest.raises((TypeError, OverflowError)):
-            pevent._pack(bad)
+            codec.packb(bad)
 
 
 def test_event_ids_and_coin_bits_equal_jax():
@@ -211,8 +213,7 @@ def test_event_ids_and_coin_bits_equal_jax():
     unsigned = pevent.new_event([], ("", ""), b"\x04" + bytes(64), 0, 5)
     with pytest.raises(ValueError, match="unsigned"):
         unsigned.hex()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        unsigned.verify()
+    assert unsigned.verify() is False
 
 
 @pytest.mark.parametrize("n,e,seed,grain,tx", [
@@ -381,16 +382,36 @@ def test_host_dag_eviction_and_continuation():
     _compare_dags(jd, pd)
     with pytest.raises(common.TooLateError):
         pd.events[0]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pd.to_wire(pd.events[pd.n_events - 1])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pd.read_wire_info(None)
+    # wire conversion: the compact form of every live event, and its
+    # reading back (parents resolved through the eviction horizon too)
+    for slot in range(pd.slot_base, pd.n_events):
+        pw = pd.to_wire(pd.events[slot])
+        jw = jd.to_wire(jd.events[slot])
+        assert pw.pack() == jw.pack()
+        back = pd.read_wire_info(pw)
+        assert back.hex() == jd.read_wire_info(jw).hex()
+        assert back.hex() == pd.events[slot].hex()
 
 
 def test_host_dag_verify_is_not_ported():
-    gen, _, pd = _dags(verify=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pd.insert(_port_event(gen.events[0]))
+    """Signature checks on insert, now ported: the generator's
+    pseudo-signatures are refused by both packages, a really signed
+    event is taken by both."""
+    from babble_tpu.crypto.keys import key_from_scalar as jkey
+    from babble_tpu_torch.crypto.keys import key_from_scalar
+
+    gen, jd, pd = _dags(verify=True)
+    assert _insert_both(jd, pd, gen.events[0]) == ("err", "invalid signature")
+    key, jk = key_from_scalar(77), jkey(77)
+    ev = pevent.new_event([b"tx"], ("", ""), key.pub_bytes, 0, 5)
+    ev.sign(key)
+    jev = jevent.new_event([b"tx"], ("", ""), jk.pub_bytes, 0, 5)
+    jev.sign(jk)
+    assert ev.hex() == jev.hex()
+    parts = {key.pub_hex: 0}
+    jd2 = jdag.HostDag(dict(parts), verify_signatures=True)
+    pd2 = pdag.HostDag(dict(parts), verify_signatures=True)
+    assert _insert_both(jd2, pd2, jev) == ("ok", 0)
 
 
 def test_commit_digest_equals_jax():
@@ -690,6 +711,9 @@ def test_engine_host_views_do_not_alias_state():
 
 
 def test_engine_refuses_membership_and_wire():
+    """A committed transaction that starts with MEMBERSHIP_MAGIC but does
+    not parse is refused (counted, not applied) by both engines alike,
+    and the engine's wire conversion equals the JAX engine's."""
     gen = jgen.random_gossip_dag(3, 80, seed=12)
     ev = gen.events
     magic = b"\x00babble-member:v1:"
@@ -697,26 +721,35 @@ def test_engine_refuses_membership_and_wire():
     assert pengine.MEMBERSHIP_MAGIC == MEMBERSHIP_MAGIC == magic
     # the same DAG with a membership transaction on its first event
     b = ev[0].body
-    first = pevent.Event(body=pevent.EventBody(
+    first = jevent.Event(body=jevent.EventBody(
         [magic + b"join"], "", "", b.creator, b.timestamp, 0), r=ev[0].r,
         s=ev[0].s)
     hexes = {ev[0].hex(): first.hex()}
-    pe = TorchHashgraph(gen.participants, verify_signatures=False,
-                        device=CPU, e_cap=128, s_cap=64, r_cap=32)
-    pe.insert_event(first)
+    events = [first]
     for e in ev[1:]:
-        q = _port_event(e)
-        q.body.self_parent = hexes.get(q.body.self_parent,
-                                       q.body.self_parent)
-        q.body.other_parent = hexes.get(q.body.other_parent,
-                                        q.body.other_parent)
+        q = e.clone()
+        q.body = jevent.EventBody(
+            list(e.body.transactions),
+            hexes.get(e.body.self_parent, e.body.self_parent),
+            hexes.get(e.body.other_parent, e.body.other_parent),
+            e.body.creator, e.body.timestamp, e.body.index)
         hexes[e.hex()] = q.hex()
-        pe.insert_event(q)
-    with pytest.raises(NotImplementedError, match="membership"):
-        pe.run_consensus()
-    assert pe.commit_length == 0
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pe.to_wire(first)
+        events.append(q)
+    je = TpuHashgraph(dict(gen.participants), verify_signatures=False,
+                      e_cap=128, s_cap=64, r_cap=32)
+    pe = TorchHashgraph(dict(gen.participants), verify_signatures=False,
+                        device=CPU, e_cap=128, s_cap=64, r_cap=32)
+    for e in events:
+        je.insert_event(e)
+        pe.insert_event(_port_event(e))
+    assert [x.hex() for x in pe.run_consensus()] == \
+        [x.hex() for x in je.run_consensus()]
+    assert pe.commit_length > 0 and first.hex() in pe.consensus_events()
+    assert pe.membership_rejects == je.membership_rejects == 1
+    assert pe.epoch == je.epoch == 0 and pe.pending_membership is None
+    pf = _port_event(first)
+    assert pe.to_wire(pf).pack() == je.to_wire(first).pack()
+    assert pe.read_wire_info(pe.to_wire(pf)).hex() == first.hex()
     with pytest.raises(ValueError, match="kernel_class"):
         TorchHashgraph(gen.participants, device=CPU, kernel_class="x")
 

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package nor msgpack (the card's machine has none), and runs a consensus
-step, a live stream and the engine with all three blocked."""
+package nor msgpack nor cryptography (the card's machine has none), and
+runs a consensus step, a live stream, the engine, a churn flow and a
+checkpoint save and load with all four blocked."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ PORT = os.path.join(REPO, "babble_tpu_torch")
 
 
 def _banned(name: str) -> bool:
-    return name.split(".")[0] in ("jax", "jaxlib", "babble_tpu", "msgpack")
+    return name.split(".")[0] in ("jax", "jaxlib", "babble_tpu", "msgpack",
+                                  "cryptography")
 
 
 def _port_sources():
@@ -42,7 +44,7 @@ def test_port_sources_import_no_jax():
 
 _BLOCKED_STEP = r"""
 import sys
-BLOCKED = ("jax", "jaxlib", "babble_tpu", "msgpack")
+BLOCKED = ("jax", "jaxlib", "babble_tpu", "msgpack", "cryptography")
 for name in BLOCKED:
     sys.modules[name] = None
 import babble_tpu_torch as bt
@@ -66,6 +68,24 @@ for i, ev in enumerate(gen.events):
         eng.run_consensus()
 eng.run_consensus()
 assert eng.commit_length > 0 and eng.dag.slot_base > 0, eng.stats_snapshot()
+import tempfile
+from babble_tpu_torch.sim.generator import feed_churn, random_churn_dag
+from babble_tpu_torch.store import load_checkpoint, save_checkpoint
+churn = random_churn_dag(4, 300, 5, [(30, "join", 4, 0), (50, "forged", 5, 0),
+                                     (150, "start", 4, 1)])
+eng = bt.TorchHashgraph(dict(churn.participants), verify_signatures=False,
+                        device="cpu", e_cap=64, s_cap=16, r_cap=8,
+                        auto_compact=True, seq_window=6, compact_min=16,
+                        finality_gate=True)
+for lo in range(0, 300, 24):
+    feed_churn(eng, churn, lo, min(lo + 24, 300))
+    eng.run_consensus()
+assert eng.epoch == 1 and eng.cfg.n == 5 and eng.membership_rejects == 1
+path = tempfile.mkdtemp() + "/ckpt"
+save_checkpoint(eng, path)
+back = load_checkpoint(path, device="cpu")
+assert back.commit_digest == eng.commit_digest and back.epoch == 1
+assert back.membership_log == eng.membership_log
 blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
            and sys.modules[m] is not None]
 assert not blocked, blocked

@@ -7,6 +7,8 @@ same tests).  On a machine with a card and the CUDA toolkit, run
     python -m pytest tests/test_torch_kernels.py -m gpu
 """
 
+import os
+
 import pytest
 import torch
 
@@ -198,3 +200,48 @@ def test_engine_on_card_matches_cpu(chunk, kw):
     assert out[:3] == ref[:3]
     for a, b in zip(ref[3], out[3]):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _churn_run(device, tmp):
+    """A small churn flow on ``device`` (a pipelined pair of joins, a
+    leave) with a save_checkpoint/load_checkpoint while one transition is
+    pending and another queued: committed ids per call, the membership
+    log, the commit digest and the final state on the host."""
+    from babble_tpu_torch import TorchHashgraph
+    from babble_tpu_torch.sim.generator import feed_churn, random_churn_dag
+    from babble_tpu_torch.store import load_checkpoint, save_checkpoint
+
+    dag = random_churn_dag(8, 900, 5, [
+        (40, "join", 8, 0), (48, "join", 9, 0), (100, "garbage", 0, 0),
+        (300, "start", 8, 1), (340, "start", 9, 2), (500, "leave", 5, 2),
+        (700, "stop", 5, 0)])
+    eng = TorchHashgraph(dict(dag.participants), verify_signatures=False,
+                         device=device, finality_gate=True, e_cap=32,
+                         s_cap=8, r_cap=4, auto_compact=True, seq_window=6,
+                         compact_min=16)
+    calls, restarted = [], False
+    for lo in range(0, 900 + 64, 32):
+        feed_churn(eng, dag, min(lo, 900), min(lo + 32, 900))
+        calls.append([e.hex() for e in eng.run_consensus()])
+        if not restarted and eng.pending_membership and eng.membership_queue:
+            path = os.path.join(tmp, device)
+            save_checkpoint(eng, path)
+            eng = load_checkpoint(path, device=device)
+            eng.finality_gate = True
+            assert eng.state.sp.device.type == device
+            restarted = True
+    assert restarted and eng.epoch == 3
+    log = [(e["epoch"], e["kind"], e["cid"], e["boundary"])
+           for e in eng.membership_log]
+    host = [t.cpu() for t in eng.state]
+    return calls, log, eng.commit_digest, host
+
+
+@pytest.mark.gpu
+def test_churn_with_checkpoint_on_card_matches_cpu(tmp_path):
+    _need_card()
+    ref = _churn_run("cpu", str(tmp_path))
+    out = _churn_run("cuda", str(tmp_path))
+    assert out[:3] == ref[:3]
+    for a, b in zip(ref[3], out[3]):
+        assert torch.equal(a, b)
