@@ -13,8 +13,12 @@ latency/throughput dispatch, compaction, commit order and digest, and
 the membership plane's join/leave epoch transitions), with its
 checkpoints and fast-forward snapshots (``store/``: the JAX package's
 FORMAT v6 bytes, restorable across the packages) and the crypto and
-msgpack they stand on (``crypto/``, ``codec.py``).  It imports torch,
-numpy and the standard library only.
+msgpack they stand on (``crypto/``, ``codec.py``), and the node runtime
+around the engine (``node/`` ``Core`` and ``Node``: gossip, commits,
+fast-forward, membership sync; ``net/`` commands and the in-memory
+transport; ``wal/``; ``obs/``), whose wire bytes, WAL segments and PEM
+key files are the JAX package's.  It imports torch, numpy and the
+standard library only.
 
 Entry points take an explicit ``device`` ("cuda" by default); pass
 ``device="cpu"`` to run every stage in plain torch on the CPU.

@@ -6,7 +6,7 @@ signature covers its message's encoding, and a checkpoint's
 ``meta.msgpack`` must load in the JAX package and back.  So ``packb``
 gives the bytes of ``msgpack.packb(obj, use_bin_type=True)`` and
 ``unpackb`` the value of ``msgpack.unpackb(data, raw=False,
-strict_map_key=False)`` for these types:
+strict_map_key=...)`` for these types:
 
 - ``None``, ``bool``, ``int`` (64 bits, the smallest form, unsigned
   forms for values >= 0 as msgpack-python picks them);
@@ -21,6 +21,12 @@ type checks; it refuses ext types.  It never allocates from a declared
 length: every length is bounded by the bytes that remain before
 anything is read, and truncated, overlong, trailing or malformed input
 raises ``ValueError``, as does nesting deeper than ``MAX_DEPTH``.
+
+``strict_map_key`` is msgpack's option of that name, with msgpack's
+default ``True``: a map key that is not ``str`` or ``bytes`` raises
+``ValueError`` as soon as the key is read, before its value.  Each call
+site passes what the JAX package's call passes there: only the
+checkpoint meta reads decode with ``strict_map_key=False``.
 """
 
 from __future__ import annotations
@@ -141,7 +147,7 @@ class _Reader:
         return n
 
 
-def _read(r: _Reader, depth: int):
+def _read(r: _Reader, depth: int, strict: bool):
     if depth > MAX_DEPTH:
         raise ValueError("msgpack input nests too deep")
     b = r.take(1)[0]
@@ -152,9 +158,9 @@ def _read(r: _Reader, depth: int):
     if 0xA0 <= b <= 0xBF:
         return _text(r.take(b & 0x1F))
     if 0x90 <= b <= 0x9F:
-        return _array(r, b & 0x0F, depth)
+        return _array(r, b & 0x0F, depth, strict)
     if 0x80 <= b <= 0x8F:
-        return _map(r, b & 0x0F, depth)
+        return _map(r, b & 0x0F, depth, strict)
     if b == 0xC0:
         return None
     if b == 0xC2:
@@ -174,9 +180,9 @@ def _read(r: _Reader, depth: int):
     if b == 0xCB:
         return r.num(_F64)
     if b in (0xDC, 0xDD):
-        return _array(r, r.num(_U16 if b == 0xDC else _U32), depth)
+        return _array(r, r.num(_U16 if b == 0xDC else _U32), depth, strict)
     if b in (0xDE, 0xDF):
-        return _map(r, r.num(_U16 if b == 0xDE else _U32), depth)
+        return _map(r, r.num(_U16 if b == 0xDE else _U32), depth, strict)
     raise ValueError(f"msgpack type byte 0x{b:02x} is not supported")
 
 
@@ -184,31 +190,35 @@ def _text(raw: bytes) -> str:
     return raw.decode("utf-8")      # UnicodeDecodeError is a ValueError
 
 
-def _array(r: _Reader, n: int, depth: int) -> list:
-    return [_read(r, depth + 1) for _ in range(r.count(n, 1))]
+def _array(r: _Reader, n: int, depth: int, strict: bool) -> list:
+    return [_read(r, depth + 1, strict) for _ in range(r.count(n, 1))]
 
 
-def _map(r: _Reader, n: int, depth: int) -> dict:
+def _map(r: _Reader, n: int, depth: int, strict: bool) -> dict:
     out = {}
     for _ in range(r.count(n, 2)):
-        k = _read(r, depth + 1)
+        k = _read(r, depth + 1, strict)
+        if strict and type(k) not in (str, bytes):
+            raise ValueError(
+                f"{type(k).__name__} is not allowed for map key when "
+                "strict_map_key=True")
         try:
             hash(k)
         except TypeError:
             raise ValueError(
                 f"msgpack map key of type {type(k).__name__} is not "
                 "hashable") from None
-        out[k] = _read(r, depth + 1)
+        out[k] = _read(r, depth + 1, strict)
     return out
 
 
-def unpackb(data) -> Any:
-    """``msgpack.unpackb(data, raw=False, strict_map_key=False)``
+def unpackb(data, strict_map_key: bool = True) -> Any:
+    """``msgpack.unpackb(data, raw=False, strict_map_key=strict_map_key)``
     (module docstring): exactly one object, nothing after it."""
     if not isinstance(data, (bytes, bytearray, memoryview)):
         raise TypeError(f"unpackb needs bytes, got {type(data).__name__}")
     r = _Reader(bytes(data))
-    obj = _read(r, 0)
+    obj = _read(r, 0, strict_map_key)
     if r.pos != r.end:
         raise ValueError(
             f"msgpack input has {r.end - r.pos} bytes after its object")
@@ -217,7 +227,9 @@ def unpackb(data) -> Any:
 
 def unpack_pair(data) -> Tuple[Any, Any]:
     """A msgpack array of exactly two objects (the snapshot's
-    ``[meta, npz]`` pair), refused as ``ValueError`` otherwise."""
+    ``[meta, npz]`` pair), refused as ``ValueError`` otherwise.  It
+    decodes at msgpack's default ``strict_map_key=True``, as the JAX
+    package reads that pair."""
     obj = unpackb(data)
     if not isinstance(obj, list) or len(obj) != 2:
         raise ValueError("expected a msgpack pair")

@@ -1,5 +1,5 @@
-"""Host containers and error types of the engine: the port's copy of the
-JAX package's ``common/offset_list.py`` and ``common/errors.py``.
+"""Append-only list with an evictable prefix: the port's copy of the JAX
+package's ``common/offset_list.py``.
 
 ``OffsetList`` is an append-only list with an evictable prefix:
 ``lst[i]`` always refers to the i-th item ever appended, items below
@@ -13,14 +13,7 @@ from __future__ import annotations
 
 from typing import Any, Iterator, List
 
-
-class KeyNotFoundError(KeyError):
-    """Requested item is not present in the store/cache."""
-
-
-class TooLateError(KeyError):
-    """Requested item has been evicted from the bounded history window
-    (the reference's ErrTooLate, hashgraph/caches.go:59-61)."""
+from .errors import KeyNotFoundError, TooLateError
 
 
 class OffsetList:

@@ -1,7 +1,7 @@
 """Pure-Python P-256 ECDSA: the port's copy of the JAX package's
 ``crypto/_fallback.py`` (the curve, the comb tables, the key objects,
-deterministic-nonce signing and verification; the PEM helpers are not
-copied yet).
+deterministic-nonce signing and verification, and the DER/PEM key
+encodings).
 
 The port signs and verifies with this backend only, because the card's
 machine has no ``cryptography`` package.  NIST P-256 group arithmetic
@@ -16,6 +16,7 @@ attacker timing this code could recover keys.
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import hmac
 import itertools
@@ -287,3 +288,94 @@ def verify(public: FallbackPublicKey, digest: bytes, r: int, s: int) -> bool:
     return aff[0] % N == r
 
 
+# ----------------------------------------------------------------------
+# minimal DER + PEM: RFC 5915 "EC PRIVATE KEY" (what the cryptography
+# backend's TraditionalOpenSSL encoding produces) and SubjectPublicKeyInfo
+
+_OID_P256 = bytes.fromhex("06082a8648ce3d030107")       # 1.2.840.10045.3.1.7
+_OID_EC_PUBKEY = bytes.fromhex("06072a8648ce3d0201")    # 1.2.840.10045.2.1
+
+
+def _der_len(n: int) -> bytes:
+    if n < 0x80:
+        return bytes([n])
+    body = n.to_bytes((n.bit_length() + 7) // 8, "big")
+    return bytes([0x80 | len(body)]) + body
+
+
+def _der(tag: int, content: bytes) -> bytes:
+    return bytes([tag]) + _der_len(len(content)) + content
+
+
+def _der_read(data: bytes, off: int) -> Tuple[int, bytes, int]:
+    """(tag, content, next_offset) at ``off``; raises on truncation."""
+    if off + 2 > len(data):
+        raise ValueError("truncated DER")
+    tag = data[off]
+    ln = data[off + 1]
+    off += 2
+    if ln & 0x80:
+        nb = ln & 0x7F
+        if nb == 0 or off + nb > len(data):
+            raise ValueError("bad DER length")
+        ln = int.from_bytes(data[off:off + nb], "big")
+        off += nb
+    if off + ln > len(data):
+        raise ValueError("truncated DER content")
+    return tag, data[off:off + ln], off + ln
+
+
+def _pem_wrap(label: str, der: bytes) -> bytes:
+    b64 = base64.b64encode(der).decode()
+    lines = [b64[i:i + 64] for i in range(0, len(b64), 64)]
+    return (
+        f"-----BEGIN {label}-----\n"
+        + "\n".join(lines)
+        + f"\n-----END {label}-----\n"
+    ).encode()
+
+
+def _pem_unwrap(pem: bytes, label: str) -> bytes:
+    text = pem.decode()
+    begin, end = f"-----BEGIN {label}-----", f"-----END {label}-----"
+    if begin not in text or end not in text:
+        raise ValueError(f"no {label} PEM block found")
+    body = text.split(begin, 1)[1].split(end, 1)[0]
+    return base64.b64decode("".join(body.split()))
+
+
+def private_key_pem(key: FallbackPrivateKey) -> bytes:
+    """RFC 5915 ECPrivateKey with named curve + embedded public key."""
+    pub_bits = _der(0x03, b"\x00" + key.public_key().sec1())
+    inner = (
+        _der(0x02, b"\x01")                            # version 1
+        + _der(0x04, key.d.to_bytes(32, "big"))        # privateKey
+        + _der(0xA0, _OID_P256)                        # [0] parameters
+        + _der(0xA1, pub_bits)                         # [1] publicKey
+    )
+    return _pem_wrap("EC PRIVATE KEY", _der(0x30, inner))
+
+
+def private_key_from_pem(pem: bytes) -> FallbackPrivateKey:
+    der = _pem_unwrap(pem, "EC PRIVATE KEY")
+    tag, seq, _ = _der_read(der, 0)
+    if tag != 0x30:
+        raise ValueError("EC PRIVATE KEY is not a SEQUENCE")
+    tag, version, off = _der_read(seq, 0)
+    if tag != 0x02 or version != b"\x01":
+        raise ValueError("unsupported ECPrivateKey version")
+    tag, priv, off = _der_read(seq, off)
+    if tag != 0x04:
+        raise ValueError("missing privateKey OCTET STRING")
+    while off < len(seq):  # optional [0] parameters: check the curve
+        tag, content, off = _der_read(seq, off)
+        if tag == 0xA0 and content != _OID_P256:
+            raise ValueError("priv_key.pem is not a P-256 key")
+    return FallbackPrivateKey(int.from_bytes(priv, "big"))
+
+
+def public_key_pem(public: FallbackPublicKey) -> bytes:
+    """SubjectPublicKeyInfo PEM (the keygen CLI's public half)."""
+    algo = _der(0x30, _OID_EC_PUBKEY + _OID_P256)
+    spki = _der(0x30, algo + _der(0x03, b"\x00" + public.sec1()))
+    return _pem_wrap("PUBLIC KEY", spki)

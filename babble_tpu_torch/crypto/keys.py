@@ -10,13 +10,15 @@ Reference parity:
 Signatures are exchanged as raw (r, s) integer pairs, as in the
 reference's wire format.  The JAX package signs with ``cryptography``
 where it is installed (a random nonce) and with the same fallback where
-it is not; both verify each other's signatures.  PEM key files wait for
-the node runtime.
+it is not; both verify each other's signatures.  PEM key files
+(``PemKeyFile``, ``pem_dump``) are RFC 5915 ``EC PRIVATE KEY`` and
+SubjectPublicKeyInfo blocks; either package reads the other's.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -108,3 +110,34 @@ def pub_hex_to_bytes(hex_id: str) -> bytes:
     if hex_id.startswith("0x") or hex_id.startswith("0X"):
         hex_id = hex_id[2:]
     return bytes.fromhex(hex_id)
+
+
+class PemKeyFile:
+    """priv_key.pem in a datadir (reference crypto/pem_key.go:29-31)."""
+
+    FILENAME = "priv_key.pem"
+
+    def __init__(self, datadir: str):
+        self.path = os.path.join(datadir, self.FILENAME)
+
+    def read(self) -> KeyPair:
+        with open(self.path, "rb") as f:
+            return KeyPair(_fb.private_key_from_pem(f.read()))
+
+    def write(self, key: KeyPair) -> None:
+        pem = _fb.private_key_pem(key.private)
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        with open(self.path, "wb") as f:
+            f.write(pem)
+
+    def exists(self) -> bool:
+        return os.path.exists(self.path)
+
+
+def pem_dump(key: KeyPair) -> Tuple[str, str]:
+    """(private_pem, public_pem) strings — the `keygen` CLI output
+    (reference cmd/main.go keygen + crypto/pem_key.go GeneratePemKey)."""
+    return (
+        _fb.private_key_pem(key.private).decode(),
+        _fb.public_key_pem(key.public).decode(),
+    )

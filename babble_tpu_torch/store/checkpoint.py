@@ -557,7 +557,7 @@ def load_snapshot(
     declared meta before any array is materialised, and the npy headers
     are checked against the declared config before decompression."""
     meta_b, npz_b = unpack_pair(data)
-    meta = unpackb(meta_b)
+    meta = unpackb(meta_b, strict_map_key=False)
     participants = {k: int(v) for k, v in meta["participants"]}
     if expected_participants is not None and participants != expected_participants:
         raise ValueError(
@@ -652,7 +652,7 @@ def load_checkpoint(
 ) -> TorchHashgraph:
     """Reconstruct an engine from a checkpoint directory on ``device``."""
     with open(os.path.join(path, _META), "rb") as f:
-        meta = unpackb(f.read())
+        meta = unpackb(f.read(), strict_map_key=False)
     if meta.get("mode") == "byzantine":
         raise NotImplementedError(NOT_PORTED_BYZANTINE)
     if meta.get("mode") == "wide":

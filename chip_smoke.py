@@ -92,6 +92,36 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    ms and bytes, and ``Event.verify`` per event over 256 signed events.
    The phase launches la_walk 0 times.
 
+8. node  — the node runtime (``node/``, ``net/``, ``wal/``, ``obs/``).
+   (a) Core replay: four ``Core``s on the card with seeded P-256
+   identities and one logical clock as ``Core.now_ns``, through
+   ``sim/replay.py``'s seeded schedule of 4,000 syncs (each carrying 1–16
+   transactions of 64 bytes; every sync crosses as ``SyncRequest`` and
+   ``SyncResponse`` bytes) with ``run_consensus`` after every sync, at
+   the node's default cache size.  Every Core's committed length,
+   commit digest, committed transactions and head seq must equal the
+   JAX Cores' (``NODE_EXPECT``, made on the CPU by ``JAX_PLATFORMS=cpu
+   python -m tests.test_torch_core``).  (b) The reference's Docker
+   testnet (heartbeat 10 ms, cache_size 50,000, tcp_timeout 200 ms, every
+   other ``Config`` field at its default): four ``Node``s on the
+   in-memory network, each with its own WAL directory, take bombard
+   traffic (5,000 transactions of 64 bytes per node, in bursts of 100
+   every 50 ms).  Node 3 is shut down after half its bursts, restarts
+   from its WAL with a new proxy and rejoins.  Every proxy must hold all
+   20,000 transactions, each once, in one order (the restarted node's
+   new proxy from the first), ``consensus_events()`` must agree, no
+   Core may count an insert failure, and nothing may be logged that a
+   node carries on from but the pulls and pushes that timed out or
+   found their peer gone, counted by class, and the notices of a WAL
+   restart (a ``run_consensus`` that raised inside a pull, or a failed
+   consensus run or served RPC, fails the phase).  Four engines flush from the default
+   executor's threads onto one card, so the phase times by wall clock
+   and the nodes' registries.  It prints transactions committed per
+   second, submit-to-commit p50/p99 at the submitting node, events
+   minted, each node's ``run_consensus`` calls with their registry
+   p50/p99 and surfaces, the restart's replay time and the host time
+   spent signing and verifying.  The phase launches la_walk 0 times.
+
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -100,6 +130,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -189,6 +220,34 @@ GOLDEN_EXPECT = {
 GOLDEN_DAG = dict(n=3, e=72, seed=11, prefix=48)
 # really signed events Event.verify is timed over
 VERIFY_EVENTS = 256
+
+# phase 8(a): the Core replay (tests/test_torch_core.py NODE): four
+# Cores, sim/replay.py's seeded schedule of syncs, run_consensus after
+# every sync, the node's default cache size
+NODE_REPLAY = dict(n=4, syncs=4000, seed=7, cache_size=500)
+# four JAX Cores through that replay, from a CPU run of
+# ``JAX_PLATFORMS=cpu python -m tests.test_torch_core`` (chip_reference)
+NODE_EXPECT = {
+    "commit_length": [3964, 3964, 3964, 3978],
+    "commit_digest": [
+        "7f0c8463a8337bac0a49236f690910d691badddf84bdad20595f9bb011052cfd",
+        "7f0c8463a8337bac0a49236f690910d691badddf84bdad20595f9bb011052cfd",
+        "7f0c8463a8337bac0a49236f690910d691badddf84bdad20595f9bb011052cfd",
+        "747699d1e9bdd4aad75557a3d0a4a51141e15fd484531d6dda33fff5a312a3c9",
+    ],
+    "consensus_txs": [33956, 33956, 33956, 34073],
+    "seq": [992, 1018, 986, 1004],
+}
+# phase 8(b): the reference's Docker testnet (mpitid/babble
+# docker/scripts/run-testnet.sh: heartbeat 10 ms, cache_size 50,000,
+# tcp_timeout 200 ms; every other Config field at its default) on the
+# in-memory network, and bombard.sh's traffic: 5,000 transactions of
+# 64 bytes per node in bursts of 100 every 50 ms; node 3 shut down
+# after half the bursts and restarted from its WAL
+TESTNET = dict(nodes=4, heartbeat=0.01, cache_size=50000, tcp_timeout=0.2,
+               txs_per_node=5000, burst=100, burst_every=0.05,
+               tx_bytes=64, crash_node=3, down_s=0.5, drain_s=300.0,
+               seed=11)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
 PEAK_BYTES_S = 3.35e12
@@ -974,6 +1033,401 @@ def phase_churn(dev, card: str) -> None:
           flush=True)
 
 
+def replay_summary(cores) -> dict:
+    """What NODE_EXPECT holds the replay's Cores to (the fields of
+    tests/test_torch_core.py replay_summary)."""
+    return {
+        "commit_length": [c.hg.commit_length for c in cores],
+        "commit_digest": [c.hg.commit_digest for c in cores],
+        "consensus_txs": [c.consensus_transactions_count() for c in cores],
+        "seq": [c.seq for c in cores],
+    }
+
+
+def pctl(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def replay_cores(device):
+    """Four Cores through NODE_REPLAY's schedule, ``run_consensus`` after
+    every sync.  Returns the Cores, the host seconds of the syncs and
+    each call's wall ms and surface."""
+    from babble_tpu_torch.crypto.keys import key_from_scalar
+    from babble_tpu_torch.net.commands import SyncRequest, SyncResponse
+    from babble_tpu_torch.node.core import Core
+    from babble_tpu_torch.sim.replay import (
+        LogicalClock, replay_scalars, sync_schedule,
+    )
+
+    cfg = NODE_REPLAY
+    keys = [key_from_scalar(d)
+            for d in replay_scalars(cfg["n"], cfg["seed"])]
+    parts = {k.pub_hex: i for i, k in enumerate(keys)}
+    clock = LogicalClock()
+    cache = cfg["cache_size"]
+    cores = [Core(i, keys[i], dict(parts), e_cap=max(cache, 64),
+                  cache_size=cache, device=device)
+             for i in range(cfg["n"])]
+    for c in cores:
+        c.now_ns = clock
+    for c in cores:
+        c.init()
+    steps = sync_schedule(cfg["n"], cfg["syncs"], cfg["seed"])
+    sync_s, call_ms, kinds = 0.0, [], []
+    for i, (frm, to, payload) in enumerate(steps):
+        a, b = cores[frm], cores[to]
+        t1 = time.perf_counter()
+        req = SyncRequest.unpack(SyncRequest("b", b.known()).pack())
+        diff = a.diff(req.known)
+        resp = SyncResponse.unpack(SyncResponse(
+            "a", a.head, a.to_wire(diff), a.known()).pack())
+        if not b.sync(resp.head, resp.events, payload):
+            raise AssertionError(f"replay sync {i} minted no event")
+        t2 = time.perf_counter()
+        b.run_consensus()
+        sync_s += t2 - t1
+        call_ms.append((time.perf_counter() - t2) * 1e3)
+        kinds.append(b.hg.last_kernel_class)
+    return cores, sync_s, call_ms, kinds
+
+
+def calls_line(call_ms, kinds) -> str:
+    return (f"run_consensus {sum(call_ms) / 1e3:.1f} s ({len(call_ms)} "
+            f"calls, p50 {pctl(call_ms, 0.5):.2f} / p99 "
+            f"{pctl(call_ms, 0.99):.2f} / max {max(call_ms):.2f} ms; "
+            f"latency {kinds.count('latency')}, throughput "
+            f"{kinds.count('throughput')})")
+
+
+def phase_node_replay(card: str, device="cuda") -> None:
+    """Phase 8(a): four Cores through the seeded sync replay, held to
+    NODE_EXPECT bit for bit (module docstring)."""
+    cfg = NODE_REPLAY
+    t0 = time.perf_counter()
+    cores, sync_s, call_ms, kinds = replay_cores(device)
+    wall = time.perf_counter() - t0
+    got = replay_summary(cores)
+    if got != NODE_EXPECT:
+        diff = {k: (got[k], v) for k, v in NODE_EXPECT.items()
+                if got[k] != v}
+        raise AssertionError(f"Core replay != the JAX Cores' (port, JAX): "
+                             f"{diff}")
+    commits = sum(got["commit_length"])
+    print(f"[node] (a) Core replay == NODE_EXPECT: {cfg['syncs']} syncs over "
+          f"{cfg['n']} Cores, commit lengths {got['commit_length']}, "
+          f"digest {got['commit_digest'][0][:16]}", flush=True)
+    print(f"[node] (a) wall {wall:.1f} s: syncs (diff, wire bytes both ways, "
+          f"insert, verify, sign) {sync_s:.1f} s, {calls_line(call_ms, kinds)}"
+          f"; {commits / wall:.0f} events committed/s over the four Cores; "
+          f"{card}", flush=True)
+
+
+class FailureLog(logging.Handler):
+    """Sorts what the testnet's nodes log and carry on from.
+
+    A pull or push that failed is read by its exception: a timeout
+    (asyncio's, with empty text: the exchange outlived ``tcp_timeout``)
+    or a peer that is unreachable or gone (the in-memory transport's
+    ``transport closed``, ``not connected to``, ``unknown peer``: node 3
+    while it is down) is counted by that class.  Any other exception is
+    a failure: with ``consensus_interval`` 0 a ``run_consensus`` that
+    raises inside a pull surfaces only here.  Of the other warnings,
+    the two notices of a WAL restart are counted, and every other one
+    (a failed consensus run or served RPC among them) is a failure."""
+
+    EXCHANGES = ("gossip to %s failed: %s", "push to %s failed: %s")
+    UNREACHABLE = ("transport closed", "not connected to", "unknown peer")
+    NOTICES = ("WAL missing or truncated", "seq probe complete")
+
+    def __init__(self, transport_error):
+        super().__init__(logging.DEBUG)
+        self.transport_error = transport_error
+        self.kinds = {}
+        self.failures = []
+
+    def count(self, kind):
+        self.kinds[kind] = self.kinds.get(kind, 0) + 1
+
+    def emit(self, record):
+        if record.msg in self.EXCHANGES:
+            e = record.args[-1]
+            verb = record.msg.split()[0]
+            if isinstance(e, TimeoutError):
+                self.count(f"{verb} timeout")
+            elif (isinstance(e, self.transport_error)
+                  and str(e).startswith(self.UNREACHABLE)):
+                self.count(f"{verb} unreachable")
+            else:
+                self.failures.append(
+                    f"{record.getMessage()} ({type(e).__name__})")
+        elif record.levelno >= logging.WARNING:
+            msg = record.getMessage()
+            notice = next((m for m in self.NOTICES if msg.startswith(m)),
+                          None)
+            if notice is None:
+                self.failures.append(msg)
+            else:
+                self.count(notice)
+
+
+def hist_pctl(h, q: float) -> str:
+    """The upper bound of the registry histogram bucket holding quantile
+    ``q`` (the registry keeps buckets, not samples)."""
+    d = h.to_dict()
+    if not d["count"]:
+        return "-"
+    for bound, cum in d["buckets"]:
+        if cum >= q * d["count"]:
+            return f"<= {bound * 1e3:g} ms" if bound != "+Inf" else "> 60 s"
+    return "-"
+
+
+def phase_testnet(card: str, device="cuda") -> None:
+    """Phase 8(b): the reference's 4-node testnet under bombard traffic,
+    node 3 crashed and restarted from its WAL (module docstring)."""
+    import asyncio
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from babble_tpu_torch.crypto import _fallback as fb
+    from babble_tpu_torch.crypto.keys import key_from_scalar
+    from babble_tpu_torch.net import InmemNetwork, Peer, TransportError
+    from babble_tpu_torch.node import Config, Node
+    from babble_tpu_torch.proxy import InmemAppProxy
+    from babble_tpu_torch.sim.replay import replay_scalars
+
+    T = TESTNET
+    n, crash = T["nodes"], T["crash_node"]
+    bursts = T["txs_per_node"] // T["burst"]
+    total = n * T["txs_per_node"]
+    keys = [key_from_scalar(d) for d in replay_scalars(n, T["seed"])]
+    logger = logging.getLogger("babble_tpu_torch.testnet")
+    logger.propagate = False
+    logger.setLevel(logging.DEBUG)  # a failed push is logged at DEBUG
+    counts = FailureLog(TransportError)
+    logger.addHandler(counts)
+    tmp = tempfile.mkdtemp(prefix="babble-testnet-")
+
+    crypto = {"sign": [0, 0.0], "verify": [0, 0.0]}
+    lock = threading.Lock()
+    originals = (fb.sign, fb.verify)
+
+    def timed_crypto(name, fn):
+        def run(*a):
+            t = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                dt = time.perf_counter() - t
+                with lock:
+                    crypto[name][0] += 1
+                    crypto[name][1] += dt
+        return run
+
+    class TimedProxy(InmemAppProxy):
+        """Records when each transaction first commits at its node."""
+
+        def __init__(self, seen):
+            super().__init__()
+            self.seen = seen
+
+        async def commit_batch(self, txs):
+            now = time.perf_counter()
+            for tx in txs:
+                self.seen.setdefault(bytes(tx), now)
+            await super().commit_batch(txs)
+
+    def conf(i):
+        return Config(heartbeat=T["heartbeat"], tcp_timeout=T["tcp_timeout"],
+                      cache_size=T["cache_size"], device=device,
+                      wal_dir=os.path.join(tmp, f"wal{i}"), logger=logger)
+
+    async def until(pred, timeout, what):
+        async def poll():
+            while not pred():
+                await asyncio.sleep(0.05)
+        try:
+            await asyncio.wait_for(poll(), timeout)
+        except asyncio.TimeoutError:
+            raise AssertionError(f"testnet: {what} not reached in "
+                                 f"{timeout:.0f} s") from None
+
+    async def run():
+        net = InmemNetwork()
+        ts = [net.transport(f"inmem://{i}") for i in range(n)]
+        peers = [Peer(t.local_addr(), k.pub_hex) for t, k in zip(ts, keys)]
+        seen = [dict() for _ in range(n)]
+        proxies = [TimedProxy(seen[i]) for i in range(n)]
+        nodes = [Node(conf(i), keys[i], peers, ts[i], proxies[i])
+                 for i in range(n)]
+        old = {}
+        submit_at = {}
+        half, restarted = asyncio.Event(), asyncio.Event()
+        try:
+            for nd in nodes:
+                nd.init()
+                nd.run_task()
+            t_start = time.perf_counter()
+
+            async def submitter(i):
+                for b in range(bursts):
+                    if i == crash and b == bursts // 2:
+                        half.set()
+                        await restarted.wait()
+                    for k in range(T["burst"]):
+                        tx = (b"tx-%d-%05d-" % (i, b * T["burst"] + k)).ljust(
+                            T["tx_bytes"], b".")
+                        submit_at[tx] = time.perf_counter()
+                        proxies[i].submit_tx_nowait(tx)
+                    wake = t_start + (b + 1) * T["burst_every"]
+                    await asyncio.sleep(max(0.0, wake - time.perf_counter()))
+
+            async def crash_and_restart():
+                await half.wait()
+                nd = nodes[crash]
+                await until(lambda: (proxies[crash].submit_queue.empty()
+                                     and not nd.transaction_pool), 120,
+                            "node 3's pool drained before the crash")
+                t = time.perf_counter()
+                await nd.shutdown()
+                # a shutdown drops what is still pooled (no event carries
+                # it); the node's client submits it again after the
+                # restart, so it is still delivered exactly once
+                old.update(node=nd, proxy=proxies[crash],
+                           shutdown_ms=(time.perf_counter() - t) * 1e3,
+                           seq=nd.core.seq, head=nd.core.head,
+                           committed=len(proxies[crash].committed),
+                           resubmitted=list(nd.transaction_pool))
+                await asyncio.sleep(T["down_s"])
+                proxies[crash] = TimedProxy(seen[crash])
+                t = time.perf_counter()
+                nodes[crash] = Node(conf(crash), keys[crash], peers,
+                                    net.transport(f"inmem://{crash}"),
+                                    proxies[crash])
+                old["replay_ms"] = (time.perf_counter() - t) * 1e3
+                old["replayed"] = len(nodes[crash].core.wal.recovered_events)
+                core = nodes[crash].core
+                if (core.seq, core.head) != (old["seq"], old["head"]):
+                    raise AssertionError(
+                        f"node {crash} restarted at seq {core.seq}, "
+                        f"published {old['seq']}")
+                if core.probing:
+                    raise AssertionError("a clean close left a seq probe")
+                nodes[crash].init()
+                nodes[crash].run_task()
+                old["restarted_at"] = time.perf_counter()
+                for tx in old["resubmitted"]:
+                    proxies[crash].submit_tx_nowait(tx)
+                restarted.set()
+
+            await asyncio.wait_for(asyncio.gather(
+                crash_and_restart(), *(submitter(i) for i in range(n))),
+                T["drain_s"])
+            t_submitted = time.perf_counter()
+            await until(lambda: all(len(p.committed) >= total
+                                    for p in proxies), T["drain_s"],
+                        f"all {total} transactions at every proxy")
+            t_done = time.perf_counter()
+        finally:
+            for nd in nodes:
+                await nd.shutdown()
+        return dict(nodes=nodes, proxies=proxies, old=old, seen=seen,
+                    submit_at=submit_at, t_start=t_start,
+                    t_submitted=t_submitted, t_done=t_done)
+
+    fb.sign = timed_crypto("sign", fb.sign)
+    fb.verify = timed_crypto("verify", fb.verify)
+    try:
+        r = asyncio.run(run())
+    finally:
+        fb.sign, fb.verify = originals
+        logger.removeHandler(counts)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    nodes, proxies, old = r["nodes"], r["proxies"], r["old"]
+    order = proxies[0].committed
+    want = set(r["submit_at"])
+    for i, p in enumerate(proxies):
+        got = p.committed
+        if len(got) != total or len(set(got)) != total or set(got) != want:
+            raise AssertionError(
+                f"proxy {i} holds {len(got)} transactions, {len(set(got))} "
+                f"distinct, {len(set(got) & want)} of the {total} submitted")
+        if got != order:
+            k = next(j for j, (a, b) in enumerate(zip(got, order)) if a != b)
+            raise AssertionError(f"proxy {i} leaves node 0's order at {k}")
+    if old["proxy"].committed != order[:len(old["proxy"].committed)]:
+        raise AssertionError("node 3's proxy before the crash left the order")
+    lists = [nd.core.hg.consensus_events() for nd in nodes]
+    k = min(len(x) for x in lists)
+    if not k or any(x[:k] != lists[0][:k] for x in lists):
+        raise AssertionError("consensus_events() disagree")
+    failures = {i: nd.core.insert_failures
+                for i, nd in enumerate(nodes + [old["node"]])}
+    if any(failures.values()):
+        raise AssertionError(f"insert failures: {failures}")
+    if counts.failures:
+        raise AssertionError(f"{len(counts.failures)} failures logged, "
+                             f"first: {counts.failures[:3]}")
+
+    span = r["t_done"] - r["t_start"]
+    lat = []
+    for tx, t in r["submit_at"].items():
+        node = int(tx.split(b"-")[1])
+        lat.append(r["seen"][node][tx] - t)
+    minted = [nd.core.seq + 1 for nd in nodes]
+    print(f"[node] (b) testnet: all {total} transactions at every proxy, "
+          f"each once, one order; node {crash}'s new proxy got that order "
+          f"from the first ({old['committed']} had reached its old proxy); "
+          f"consensus_events agree over {k}; insert failures 0; failures "
+          f"logged 0", flush=True)
+    print(f"[node] (b) {total / span:.0f} transactions committed/s (first "
+          f"submit to the last proxy's {total}th: {span:.1f} s; submission "
+          f"took {r['t_submitted'] - r['t_start']:.1f} s); submit->commit at "
+          f"the submitting node p50 {pctl(lat, 0.5) * 1e3:.0f} ms, p99 "
+          f"{pctl(lat, 0.99) * 1e3:.0f} ms; events minted {sum(minted)} "
+          f"({minted}); {card}", flush=True)
+    for i, nd in enumerate([*nodes, old["node"]]):
+        reg = nd.registry
+        cons = reg.get("babble_consensus_seconds")
+        flush = reg.get("babble_flush_seconds")
+        lat_n = flush.labels("latency").count
+        thr_n = flush.labels("throughput").count
+        tag = f"node {i}" if i < n else f"node {crash} before the crash"
+        print(f"[node] (b) {tag}: run_consensus {cons.count} calls, mean "
+              f"{cons.sum / max(cons.count, 1) * 1e3:.1f} ms, p50 "
+              f"{hist_pctl(cons, 0.5)}, p99 {hist_pctl(cons, 0.99)} "
+              f"(registry buckets); surfaces latency {lat_n}, throughput "
+              f"{thr_n}; flush fallbacks {nd.core.hg.flush_fallbacks}; "
+              f"syncs {nd.sync_requests} ({nd.sync_errors} failed), pushes "
+              f"{int(reg.get('babble_push_total').value)}", flush=True)
+    (n_sign, s_sign), (n_ver, s_ver) = crypto["sign"], crypto["verify"]
+    print(f"[node] (b) restart of node {crash}: shutdown "
+          f"{old['shutdown_ms']:.0f} ms ({len(old['resubmitted'])} pooled "
+          f"transactions submitted again), WAL recovery + replay of "
+          f"{old['replayed']} events into a fresh engine "
+          f"{old['replay_ms']:.0f} ms; host crypto: {n_sign} signs "
+          f"{s_sign:.2f} s ({s_sign / max(n_sign, 1) * 1e3:.2f} ms each), "
+          f"{n_ver} verifies {s_ver:.2f} s ({s_ver / max(n_ver, 1) * 1e3:.2f} "
+          f"ms each), wall per call under the GIL", flush=True)
+    every = [*nodes, old["node"]]
+    pulls = sum(nd.sync_requests for nd in every)
+    pushes = sum(int(nd.registry.get("babble_push_total").value)
+                 for nd in every)
+    kinds = counts.kinds
+    print(f"[node] (b) exchanges that failed, by class: pulls "
+          f"{kinds.get('gossip timeout', 0)} of {pulls} timed out "
+          f"({kinds.get('gossip timeout', 0) / max(pulls, 1):.1%}), "
+          f"{kinds.get('gossip unreachable', 0)} unreachable; pushes "
+          f"{kinds.get('push timeout', 0)} of {pushes} timed out, "
+          f"{kinds.get('push unreachable', 0)} unreachable; notices "
+          f"{ {k: v for k, v in kinds.items() if k in FailureLog.NOTICES} }",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1015,6 +1469,16 @@ def main() -> int:
     if la_walk.launches:
         raise AssertionError("the churn flow launched la_walk")
     print("[churn] la_walk launches in phase 7: 0", flush=True)
+
+    la_walk.launches = 0
+    t0 = time.perf_counter()
+    phase_node_replay(card)
+    t1 = time.perf_counter()
+    phase_testnet(card)
+    if la_walk.launches:
+        raise AssertionError("the node path launched la_walk")
+    print(f"[node] la_walk launches in phase 8: 0; (a) {t1 - t0:.1f} s, "
+          f"(b) {time.perf_counter() - t1:.1f} s", flush=True)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [row]}), flush=True)

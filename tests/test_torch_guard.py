@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package nor msgpack nor cryptography (the card's machine has none), and
-runs a consensus step, a live stream, the engine, a churn flow and a
-checkpoint save and load with all four blocked."""
+runs a consensus step, a live stream, the engine, a churn flow, a
+checkpoint save and load, and a 3-node fleet of its ``Node`` (gossip to
+committed transactions, then a restart from the write-ahead log) with
+all four blocked."""
 
 import ast
 import os
@@ -86,6 +88,57 @@ save_checkpoint(eng, path)
 back = load_checkpoint(path, device="cpu")
 assert back.commit_digest == eng.commit_digest and back.epoch == 1
 assert back.membership_log == eng.membership_log
+import asyncio
+from babble_tpu_torch.crypto.keys import key_from_scalar
+from babble_tpu_torch.net import InmemNetwork, Peer
+from babble_tpu_torch.node import Config, Node
+from babble_tpu_torch.proxy import InmemAppProxy
+
+
+async def fleet():
+    net = InmemNetwork()
+    keys = [key_from_scalar(101 + i) for i in range(3)]
+    ts = [net.transport(f"inmem://{i}") for i in range(3)]
+    peers = [Peer(t.local_addr(), k.pub_hex) for t, k in zip(ts, keys)]
+    wal = tempfile.mkdtemp()
+
+    def conf(i):
+        c = Config.test_config(heartbeat=0.01, device="cpu")
+        c.wal_dir, c.wal_fsync = f"{wal}/{i}", "off"
+        return c
+
+    proxies = [InmemAppProxy() for _ in range(3)]
+    nodes = [Node(conf(i), keys[i], peers, ts[i], proxies[i])
+             for i in range(3)]
+
+    async def committed(k):
+        while not all(len(p.committed) >= k for p in proxies):
+            await asyncio.sleep(0.05)
+
+    for nd in nodes:
+        nd.init()
+        nd.run_task()
+    for i in range(6):
+        await proxies[i % 3].submit_tx(b"tx%d" % i)
+    await asyncio.wait_for(committed(6), 120)
+    await nodes[2].shutdown()
+    seq = nodes[2].core.seq
+    proxies[2] = InmemAppProxy()
+    nodes[2] = Node(conf(2), keys[2], peers, net.transport("inmem://2"),
+                    proxies[2])
+    assert nodes[2].core.seq == seq and not nodes[2].core.probing
+    nodes[2].init()
+    nodes[2].run_task()
+    await proxies[0].submit_tx(b"after")
+    await asyncio.wait_for(committed(7), 120)
+    for nd in nodes:
+        await nd.shutdown()
+    orders = [p.committed[:7] for p in proxies]
+    assert orders[0] == orders[1] == orders[2], orders
+    assert set(orders[0]) == {b"tx%d" % i for i in range(6)} | {b"after"}
+
+
+asyncio.run(fleet())
 blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
            and sys.modules[m] is not None]
 assert not blocked, blocked

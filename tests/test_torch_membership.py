@@ -97,7 +97,8 @@ def test_codec_equals_msgpack_on_seeded_values(seed):
         want = msgpack.packb(v, use_bin_type=True)
         assert codec.packb(v) == want
         back = msgpack.unpackb(want, raw=False, strict_map_key=False)
-        assert codec.unpackb(want) == back == _listed(v)
+        assert codec.unpackb(want, strict_map_key=False) == back \
+            == _listed(v)
 
 
 def test_codec_edges_equal_msgpack():
@@ -111,7 +112,7 @@ def test_codec_edges_equal_msgpack():
         raw = msgpack.packb(o, use_bin_type=True)
         if not isinstance(o, float):
             assert codec.packb(o) == raw
-        assert codec.unpackb(raw) == msgpack.unpackb(
+        assert codec.unpackb(raw, strict_map_key=False) == msgpack.unpackb(
             raw, raw=False, strict_map_key=False)
     # float32 decodes as msgpack does
     f32 = b"\xca" + np.float32(0.1).byteswap().tobytes()
@@ -155,6 +156,74 @@ def test_codec_refuses_unencodable_and_pairs():
     assert isinstance(msgpack.unpackb(b"\xd4\x01\x00"), msgpack.ExtType)
     with pytest.raises(ValueError, match="0xd4"):
         codec.unpackb(b"\xd4\x01\x00")
+
+
+@pytest.mark.parametrize("key", [1, -3, 2**40, 1.5, None, True, [1],
+                                 "k", b"k"],
+                         ids=lambda k: type(k).__name__ + repr(k)[:6])
+@pytest.mark.parametrize("nested", [False, True])
+def test_codec_strict_map_key_equals_msgpack(key, nested):
+    """msgpack's ``strict_map_key``, both ways: under its default True
+    only str and bytes keys decode.  The port refuses the key before it
+    reads the value, so a map whose value is truncated is refused for
+    its key; msgpack reports the truncation, and both refuse."""
+    if isinstance(key, list):
+        body = b"\x81\x91\x01"               # {[1]: ...}
+    else:
+        body = b"\x81" + msgpack.packb(key, use_bin_type=True)
+    whole = body + b"\x05"
+    if nested:
+        body, whole = b"\x92\x01" + body, b"\x92\x01" + whole
+    if isinstance(key, (str, bytes)):
+        for strict in (True, False):
+            want = msgpack.unpackb(whole, raw=False, strict_map_key=strict)
+            assert codec.unpackb(whole, strict_map_key=strict) == want
+        assert codec.unpackb(whole) == want
+        return
+    with pytest.raises(ValueError):
+        msgpack.unpackb(body + b"\xcd\x01", raw=False)
+    with pytest.raises(ValueError, match="not allowed for map key"):
+        codec.unpackb(body + b"\xcd\x01")
+    if not isinstance(key, list):
+        with pytest.raises(ValueError) as jerr:
+            msgpack.unpackb(whole, raw=False)
+        with pytest.raises(ValueError) as perr:
+            codec.unpackb(whole)
+        assert str(perr.value) == str(jerr.value)
+    # the snapshot's outer pair keeps the default too
+    with pytest.raises(ValueError):
+        codec.unpack_pair(whole if nested else b"\x92" + whole + b"\x01")
+    if isinstance(key, list):
+        # unhashable: refused under either option, as msgpack does
+        with pytest.raises(ValueError):
+            codec.unpackb(whole, strict_map_key=False)
+        return
+    want = msgpack.unpackb(whole, raw=False, strict_map_key=False)
+    assert codec.unpackb(whole, strict_map_key=False) == want
+
+
+def test_codec_checkpoint_meta_reads_accept_int_keys(tmp_path):
+    """The checkpoint meta reads are the one place the JAX package passes
+    ``strict_map_key=False`` (``store/checkpoint.py:985``, ``:1111``),
+    and a meta with an int-keyed map still loads there, while the
+    snapshot's outer pair keeps the default."""
+    meta = {"cfg": {"n": 1}, 7: {3: b"x"}}
+    raw = msgpack.packb(meta, use_bin_type=True)
+    assert codec.unpackb(raw, strict_map_key=False) == msgpack.unpackb(
+        raw, raw=False, strict_map_key=False)
+    with pytest.raises(ValueError):
+        codec.unpackb(raw)
+    pair = msgpack.packb([raw, b"npz"], use_bin_type=True)
+    assert codec.unpack_pair(pair) == (raw, b"npz")
+    hostile = msgpack.packb([{1: 2}, b"npz"], use_bin_type=True)
+    with pytest.raises(ValueError):
+        codec.unpack_pair(hostile)
+    with pytest.raises(ValueError):
+        msgpack.unpackb(hostile, raw=False)
+    from babble_tpu_torch.store import checkpoint as pckpt
+
+    with pytest.raises(ValueError):
+        pckpt.load_snapshot(hostile, device=CPU)
 
 
 # ----------------------------------------------------------------------
@@ -566,3 +635,38 @@ def test_churn_leave_flows_equal_jax_per_call(name):
             30, None, dict(kernel_class="throughput", **_TINY),
             dict(epoch=1, n=3, retired=(2,), rejects=1))
         assert seen >= {"throughput"}
+
+
+def _map_encoded_join(real_churn_tx):
+    """``_churn_tx`` with every join's body re-encoded as a msgpack map
+    whose six keys are its six fields in order, each with the value 0.
+    The epoch key is an int, which msgpack's default decode refuses."""
+    def churn_tx(action, member, epoch, keys):
+        tx = real_churn_tx(action, member, epoch, keys)
+        if action != "join":
+            return tx
+        body = msgpack.unpackb(tx[len(ptx.MEMBERSHIP_MAGIC):], raw=False)
+        return ptx.MEMBERSHIP_MAGIC + msgpack.packb(
+            {field: 0 for field in body}, use_bin_type=True)
+    return churn_tx
+
+
+def test_churn_map_encoded_join_is_refused_as_in_jax(monkeypatch):
+    """A join whose body is a msgpack map is garbage to the JAX package
+    (its parse decodes with msgpack's default ``strict_map_key=True``)
+    and must be garbage to the port too: one reject, nothing pending,
+    the peer set unchanged, and the same commits after every call."""
+    from babble_tpu_torch.sim import generator as pgen
+
+    from .test_torch_churn import _TINY, _flow
+
+    monkeypatch.setattr(pgen, "_churn_tx", _map_encoded_join(pgen._churn_tx))
+    je, seen = _flow(4, 300, 5, [(30, "join", 4, 0)], chunk=24,
+                     finality_gate=True, **_TINY)
+    assert (je.membership_rejects, je.pending_membership, je.epoch,
+            je.cfg.n) == (1, None, 0, 4)
+    assert je.commit_length > 0 and "compact" in seen
+    dag = pgen.random_churn_dag(4, 300, 5, [(30, "join", 4, 0)])
+    tx = next(t for ev in dag.events for t in ev.transactions)
+    assert jtx.parse_membership_tx(tx) is None
+    assert ptx.parse_membership_tx(tx) is None
