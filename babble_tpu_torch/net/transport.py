@@ -39,8 +39,7 @@ class TransportError(Exception):
 
 
 class Transport:
-    """Abstract transport.  Implementation: InmemTransport (the TCP
-    transport is not ported yet)."""
+    """Abstract transport. Implementations: InmemTransport, TCPTransport."""
 
     @property
     def consumer(self) -> "asyncio.Queue[RPC]":

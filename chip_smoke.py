@@ -121,6 +121,46 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    minted, each node's ``run_consensus`` calls with their registry
    p50/p99 and surfaces, the restart's replay time and the host time
    spent signing and verifying.  The phase launches la_walk 0 times.
+9. tcp   — the process around the node (``cli``, ``testnet.py``,
+   ``net/tcp_transport.py``, ``proxy/``, ``service/``): the reference's
+   testnet as four ``python -m babble_tpu_torch.cli run --device cuda``
+   processes (heartbeat 10 ms, cache_size 50,000, tcp_timeout 200 ms, a
+   WAL each with ``--wal_fsync batch(32,50)``) gossiping over loopback
+   TCP on run-testnet.sh's port layout, and a ``cli dummy`` app process
+   per node.  Phase 8(b)'s traffic (5,000 transactions of 64 bytes per
+   node, bursts of 100 every 50 ms) goes to each node's JSON-RPC
+   ``Babble.SubmitTxBatch``, once every node's /Stats answers.  After
+   half its bursts, once every transaction it took in is minted (so in
+   its WAL), node 3 is killed with SIGKILL and restarted from its WAL;
+   its app, which keeps no snapshot of its own, is restarted with it on
+   a fresh messages.txt.  Every app's messages.txt must hold each of the
+   20,000 transactions once, in one order (node 3's old one a prefix of
+   it).  Round 2 sends 2,000 more a node and kills node 3 again a seeded
+   delay after a seeded burst of its own was admitted, whatever it is
+   doing (minting, appending to its WAL); then the apps must hold one
+   order with no transaction twice, round 1's first, and only node 3's
+   transactions from before that kill may be missing.  No node or app
+   process may exit but the killed one; each node's boot line must name
+   the card; and every warning in every ``node.log`` must be a notice of
+   a WAL restart or a pull that timed out (``rpc to X timed out``,
+   ``dial to X timed out``, or the empty text of the peer's own error
+   frame, no more of them from a peer than the handler timeouts it
+   counts in ``babble_net_serve_timeouts_total``) or found its peer
+   gone (``sync to X failed`` with a refused dial, a reset or an end of
+   stream, or ``connection to X closed``) while that peer was down: at
+   boot or after a SIGKILL, until its /Stats answered.  It prints
+   transactions committed per second (first submit to the last app's
+   last), submit-to-commit p50/p99 at the submitting node's app, events
+   minted, each node's ``run_consensus`` calls with their p50/p99 and
+   its syncs and pushes from ``/metrics`` after round 1, node 3's
+   restarts and WAL replay, the failed pulls by class with the
+   unreachable ones by peer and reason, how long a fifth dummy app
+   takes to ack a 1 MiB commit batch under the fleet's load (the
+   node-side proxy waits one second a MiB, and awaits a late ack
+   instead of sending the batch again), and then what one large sync
+   and one fast-forward frame cost through ``net/codec.py``.  The nodes
+   run in their own processes, so la_walk's count is not visible here;
+   the engine never takes the walk mode (phases 6-8).
 
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -131,6 +171,7 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
+import re
 import subprocess
 import sys
 import time
@@ -248,6 +289,25 @@ TESTNET = dict(nodes=4, heartbeat=0.01, cache_size=50000, tcp_timeout=0.2,
                txs_per_node=5000, burst=100, burst_every=0.05,
                tx_bytes=64, crash_node=3, down_s=0.5, drain_s=300.0,
                seed=11)
+
+# phase 9: the reference's testnet as processes (mpitid/babble
+# docker/scripts/run-testnet.sh: 4 nodes, heartbeat 10 ms, cache_size
+# 50,000, tcp_timeout 200 ms; the WAL flags testnet.py passes), one
+# ``cli run --device cuda`` process and one dummy app process per node,
+# over loopback TCP on run-testnet.sh's port layout; phase 8(b)'s
+# traffic, submitted over JSON-RPC, and node 3 SIGKILLed after half its
+# bursts and restarted from its WAL
+TCP_TESTNET = dict(nodes=4, heartbeat_ms=10, cache_size=50000,
+                   tcp_timeout_ms=200, txs_per_node=5000, burst=100,
+                   burst_every=0.05, tx_bytes=64, crash_node=3, down_s=0.5,
+                   boot_s=300.0, drain_s=300.0, base_port=12000,
+                   round2_txs_per_node=2000, kill2_seed=9, settle_s=3.0,
+                   probe_txs=11400, probe_every_s=2.0, trace_s=0.5)
+# phase 9's codec costs: one large sync (a SyncResponse of this many
+# gossip events, 64-byte transactions) and one fast-forward frame (a
+# FastForwardResponse with the snapshot of an engine holding them)
+CODEC_FRAME = dict(n=4, events=4096, seed=11, tx_bytes=64)
+
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
 PEAK_BYTES_S = 3.35e12
@@ -1428,6 +1488,764 @@ def phase_testnet(card: str, device="cuda") -> None:
           flush=True)
 
 
+class NodeLogCheck:
+    """Sorts what a testnet node process logged (``node.log``, the
+    logger's ``asctime levelname name message`` lines at ``--log_level
+    warning``).  A pull that failed is read by the TCP transport's text.
+    A timeout (``rpc to X timed out after Ys``, ``dial to X timed out``)
+    is counted for any peer.  An empty text is the peer's error frame
+    when its own handler outlived ``tcp_timeout`` (asyncio's empty
+    ``TimeoutError`` text, ``tcp_transport.py _serve_rpc``); the pulls
+    that read it from a peer may not outnumber that peer's
+    ``babble_net_serve_timeouts_total`` (``check_peer_timeouts``).  A
+    peer that is gone (``sync to X failed: <reason>``, ``connection to X
+    closed``) is counted only while X was down (``down``: gossip address
+    -> wall-clock spans, from the fleet's start or X's SIGKILL to X's
+    /Stats answering, plus ``SLACK`` seconds of logging lag), and only
+    for a refused dial, a reset, or an end of stream.  The notices of a WAL
+    restart are counted.  Every other warning or error, and any
+    traceback, is a failure.  (A failed push is logged at DEBUG, so it is
+    not in the log; ``/metrics`` counts them.)"""
+
+    LINE = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d+) "
+                      r"(DEBUG|INFO|WARNING|ERROR|CRITICAL) \S+ (.*)$")
+    PULL = re.compile(r"^gossip to (\S+) failed: (.*)$")
+    TIMEOUTS = ("rpc to ", "dial to ")
+    GONE = re.compile(r"^(?:sync to (\S+) failed: (.*)|connection to (\S+) "
+                      r"closed)$")
+    REASONS = (("Connect call failed", "refused"),
+               ("Connection refused", "refused"),
+               ("Connection reset by peer", "reset"),
+               ("Broken pipe", "reset"),
+               ("bytes read on a total of", "end of stream"),
+               ("connection closed", "end of stream"))
+    NOTICES = ("WAL missing or truncated", "seq probe complete")
+    SLACK = 2.0
+
+    def __init__(self, down=None):
+        self.down = down or {}
+        self.kinds = {}
+        self.failures = []
+        #: target -> pulls that read the peer's empty timeout text
+        self.peer_timeouts = {}
+        #: (target, reason) -> pulls that found the target gone
+        self.gone = {}
+
+    def count(self, kind):
+        self.kinds[kind] = self.kinds.get(kind, 0) + 1
+
+    def _gone_reason(self, target: str, why: str, at: float):
+        m = self.GONE.match(why)
+        if m is None or (m.group(1) or m.group(3)) != target:
+            return None
+        if not any(t0 <= at <= t1 + self.SLACK
+                   for t0, t1 in self.down.get(target, ())):
+            return None
+        if m.group(3):
+            return "closed"
+        return next((r for p, r in self.REASONS if p in m.group(2)), None)
+
+    def read(self, i: int, text: str) -> None:
+        for line in text.splitlines():
+            if line.startswith("Traceback"):
+                self.failures.append(f"node {i}: {line}")
+                continue
+            m = self.LINE.match(line)
+            if m is None or m.group(3) in ("DEBUG", "INFO"):
+                continue
+            at = time.mktime(time.strptime(m.group(1), "%Y-%m-%d %H:%M:%S")) \
+                + int(m.group(2)) / 1000
+            msg = m.group(4)
+            pull = self.PULL.match(msg)
+            notice = next((n for n in self.NOTICES if msg.startswith(n)),
+                          None)
+            if pull and pull.group(2) == "":
+                target = pull.group(1)
+                self.peer_timeouts[target] = \
+                    self.peer_timeouts.get(target, 0) + 1
+                self.count("pull timeout (peer)")
+            elif pull and pull.group(2).startswith(self.TIMEOUTS):
+                self.count("pull timeout")
+            elif pull and self._gone_reason(*pull.groups(), at):
+                key = (pull.group(1), self._gone_reason(*pull.groups(), at))
+                self.gone[key] = self.gone.get(key, 0) + 1
+                self.count("pull unreachable")
+            elif notice:
+                self.count(notice)
+            else:
+                self.failures.append(f"node {i}: {line}")
+
+    def check_peer_timeouts(self, served: dict) -> None:
+        """``served``: gossip address -> the peer's own count of handler
+        timeouts, summed over its lifetimes."""
+        for target, n in sorted(self.peer_timeouts.items()):
+            if n > served.get(target, 0):
+                self.failures.append(
+                    f"{n} pulls read an empty error text from {target}, "
+                    f"which counts {served.get(target, 0):.0f} handler "
+                    "timeouts")
+
+
+def scrape(text: str) -> dict:
+    """Prometheus text -> {series name with labels: value}."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def scraped_pctl(m: dict, name: str, q: float) -> str:
+    """The upper bound of the bucket holding quantile ``q`` of a scraped
+    histogram."""
+    count = m.get(f"{name}_count", 0.0)
+    if not count:
+        return "-"
+    buckets = sorted(
+        (float("inf") if k.split('le="')[1][:-2] == "+Inf"
+         else float(k.split('le="')[1][:-2]), v)
+        for k, v in m.items() if k.startswith(f"{name}_bucket{{"))
+    for bound, cum in buckets:
+        if cum >= q * count:
+            return f"<= {bound * 1e3:g} ms" if bound != float("inf") else \
+                "> 60 s"
+    return "-"
+
+
+def trace_busy(path: str) -> dict:
+    """A ``torch.profiler`` Chrome trace (``trace.json``) -> its device
+    activities (kernels, copies, sets), the union of their spans (busy)
+    and the span of every recorded event (window), in ms."""
+    with open(path) as f:
+        text = f.read()
+    events = [e for e in json.loads(text).get("traceEvents", [])
+              if e.get("ph") == "X" and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in device:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    window = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+              - min(float(e["ts"]) for e in events)) if events else 0.0
+    return {"events": len(events), "device": len(device),
+            "busy_ms": busy / 1e3,
+            "window_ms": window / 1e3, "mb": len(text) / 1e6}
+
+
+def codec_costs(device) -> None:
+    """Phase 9's codec line: one large sync and one fast-forward frame
+    through ``net/codec.py`` (both past the 64 KB gate, so on the codec
+    thread), with the event loop's longest stall while each decodes."""
+    import asyncio
+
+    from babble_tpu_torch.consensus.engine import TorchHashgraph
+    from babble_tpu_torch.core.dag import HostDag
+    from babble_tpu_torch.net import codec
+    from babble_tpu_torch.net.commands import (
+        FastForwardResponse, SyncResponse)
+    from babble_tpu_torch.sim.generator import random_gossip_dag
+    from babble_tpu_torch.store.checkpoint import snapshot_bytes
+
+    c = CODEC_FRAME
+    g = random_gossip_dag(c["n"], c["events"], seed=c["seed"],
+                          tx_bytes=c["tx_bytes"])
+    dag = HostDag(dict(g.participants), verify_signatures=False)
+    for ev in g.events:
+        dag.insert(ev)
+    sync = SyncResponse("127.0.0.1:12000", g.events[-1].hex(),
+                        [dag.to_wire(e) for e in g.events], {})
+    eng = TorchHashgraph(dict(g.participants), verify_signatures=False,
+                         device=device)
+    for ev in g.events:
+        eng.insert_event(ev)
+    eng.run_consensus()
+    ff = FastForwardResponse("127.0.0.1:12000", snapshot_bytes(eng),
+                             lcr=eng.last_consensus_round)
+
+    async def measure(msg):
+        loop = asyncio.get_running_loop()
+        gap, stop = [0.0], [False]
+
+        async def tick():
+            t = loop.time()
+            while not stop[0]:
+                await asyncio.sleep(0.001)
+                now = loop.time()
+                gap[0] = max(gap[0], now - t)
+                t = now
+
+        ticker = asyncio.ensure_future(tick())
+        await asyncio.sleep(0.01)
+        t0 = time.perf_counter()
+        body = await codec.encode_frame(msg)
+        t1 = time.perf_counter()
+        back = await codec.decode_frame(type(msg), body)
+        t2 = time.perf_counter()
+        stop[0] = True
+        await ticker
+        if back.pack() != body:
+            raise AssertionError(f"{type(msg).__name__} does not round-trip")
+        return len(body), (t1 - t0) * 1e3, (t2 - t1) * 1e3, gap[0] * 1e3
+
+    for name, msg in (("large sync", sync), ("fast-forward frame", ff)):
+        size, enc, dec, gap = asyncio.run(measure(msg))
+        print(f"[tcp] codec: {name} ({type(msg).__name__}, "
+              f"{len(sync.events)} events) {size / 1e6:.3f} MB: encode "
+              f"{enc:.1f} ms, decode {dec:.1f} ms on the codec thread; the "
+              f"event loop's longest stall meanwhile {gap:.1f} ms",
+              flush=True)
+
+
+def phase_tcp_testnet(card: str, device="cuda") -> None:
+    """Phase 9: the reference's testnet as four ``cli run`` processes
+    over TCP, node 3 SIGKILLed and restarted from its WAL twice: once
+    with every transaction it took in minted, once at a seeded moment
+    (module docstring)."""
+    import asyncio
+    import os
+    import random
+    import shutil
+    import socket
+    import tempfile
+    import threading
+    import urllib.request
+
+    from babble_tpu_torch import testnet as tn
+    from babble_tpu_torch.net.peers import JSONPeers
+    from babble_tpu_torch.proxy.admission import OverloadedError
+    from babble_tpu_torch.proxy.jsonrpc import JsonRpcClient, b64e
+    from babble_tpu_torch.wal import WriteAheadLog
+
+    T = TCP_TESTNET
+    n, crash = T["nodes"], T["crash_node"]
+    bursts, bursts2 = (T["txs_per_node"] // T["burst"],
+                       T["round2_txs_per_node"] // T["burst"])
+    total = n * T["txs_per_node"]
+    base = T["base_port"]
+    ports = tn.PortLayout(base, base + 1000, base + 2000, base + 3000)
+    crash_addr = ports.of(crash)["gossip"]
+    tmp = tempfile.mkdtemp(prefix="babble-tcp-testnet-")
+    runner = tn.TestnetRunner(
+        tmp, n, heartbeat_ms=T["heartbeat_ms"], cache_size=T["cache_size"],
+        tcp_timeout_ms=T["tcp_timeout_ms"], ports=ports, wal=True,
+        device=device)
+    ddir = [os.path.join(tmp, f"node{i}") for i in range(n)]
+    logs = [os.path.join(d, "messages.txt") for d in ddir]
+    # node 3's apps before each kill (an app keeps no snapshot, so it is
+    # restarted with its node on a fresh messages.txt)
+    befores = [os.path.join(ddir[crash], f"messages-before-kill{k}.txt")
+               for k in (1, 2)]
+    rng = random.Random(T["kill2_seed"])
+    kill2_burst = rng.randrange(1, bursts2)
+    kill2_delay = rng.uniform(0.0, T["burst_every"])
+
+    # when each transaction first shows in each app's log (node 3's
+    # across its apps) and how many lines each log holds, read every
+    # 50 ms from the files the dummy processes append to
+    seen = [dict() for _ in range(n)]
+    offsets, nlines, full_at = {}, {}, {}
+    done = threading.Event()
+    tail_lock = threading.Lock()
+
+    def tail_once():
+        with tail_lock:
+            _tail_once()
+
+    def _tail_once():
+        now = time.perf_counter()
+        for i, path in enumerate(logs):
+            try:
+                with open(path, "rb") as f:
+                    f.seek(offsets.get(path, 0))
+                    chunk = f.read()
+            except FileNotFoundError:
+                continue
+            cut = chunk.rfind(b"\n") + 1
+            offsets[path] = offsets.get(path, 0) + cut
+            got = chunk[:cut].splitlines()
+            for tx in got:
+                seen[i].setdefault(tx, now)
+            nlines[path] = nlines.get(path, 0) + len(got)
+            if nlines[path] >= total:
+                full_at.setdefault(path, now)
+
+    def tailer():
+        while not done.wait(0.05):
+            tail_once()
+
+    def lines(path):
+        if not os.path.exists(path):
+            return []
+        with open(path, "rb") as f:
+            return f.read().splitlines()
+
+    def metrics(i):
+        return scrape(tn.fetch_metrics(ports.of(i)["service"]))
+
+    def log_check():
+        check = NodeLogCheck(info["down"])
+        for i, d in enumerate(ddir):
+            with open(os.path.join(d, "node.log")) as f:
+                check.read(i, f.read())
+        return check
+
+    async def until(pred, timeout, what):
+        t0 = time.monotonic()
+        while not await pred():
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"tcp testnet: {what} not reached in "
+                                     f"{timeout:.0f} s")
+            await asyncio.sleep(0.1)
+
+    async def stats_up(i):
+        loop = asyncio.get_running_loop()
+        if runner.node_procs[i].poll() is not None:
+            with open(os.path.join(ddir[i], "node.log")) as f:
+                raise AssertionError(f"node {i} exited at boot: "
+                                     f"{f.read()[-2000:]}")
+        try:
+            await loop.run_in_executor(None, tn.fetch_stats,
+                                       ports.of(i)["service"])
+            return True
+        except OSError:
+            return False
+
+    # a fifth dummy app, alone, times its ack of a 1 MiB commit batch
+    # every few seconds while the fleet runs round 1 (the node-side
+    # proxy waits one second a MiB before it logs the ack as late)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        probe_addr = "127.0.0.1:%d" % s.getsockname()[1]
+    probe_wire = [b64e((b"probe-%06d-" % k).ljust(T["tx_bytes"], b"."))
+                  for k in range(T["probe_txs"])]
+    probe_mib = len(json.dumps({"method": "State.CommitTxBatch",
+                                "params": [probe_wire], "id": 1})) / 2**20
+    probe_acks = []
+
+    submit_at, submit_at2 = {}, {}
+    # each node's spans down: from the fleet's start to its /Stats, and
+    # node 3's from each SIGKILL to its /Stats again
+    info = {"down": {ports.of(i)["gossip"]: [] for i in range(n)},
+            "shed": 0}
+
+    async def submit(client, txs):
+        rest = list(txs)
+        while rest:
+            try:
+                await client.call("Babble.SubmitTxBatch",
+                                  [b64e(tx) for tx in rest])
+                return
+            except OverloadedError as e:
+                info["shed"] += len(rest) - e.admitted
+                del rest[:e.admitted]
+                await asyncio.sleep(e.retry_after_ms / 1000.0)
+
+    async def kill_and_restart(k):
+        """SIGKILL node 3 and its app, then start both again; records
+        the wall-clock span it was down for the log check."""
+        loop = asyncio.get_running_loop()
+        t_kill = time.time()
+        runner.kill_node(crash)
+        info[f"at_kill{k}"] = await loop.run_in_executor(
+            None, tn.fetch_stats, ports.of(0)["service"])
+        runner.kill_client(crash)
+        with tail_lock:
+            _tail_once()
+            if os.path.exists(logs[crash]):
+                os.replace(logs[crash], befores[k - 1])
+            offsets.pop(logs[crash], None)
+            nlines.pop(logs[crash], None)
+        await asyncio.sleep(T["down_s"])
+        runner.spawn_client(crash)
+        t = time.perf_counter()
+        runner.restart_node(crash)
+        await until(lambda: stats_up(crash), T["boot_s"],
+                    f"node {crash}'s /Stats after restart {k}")
+        info["down"][crash_addr].append((t_kill, time.time()))
+        info[f"restart{k}_s"] = time.perf_counter() - t
+        info[f"at_back{k}"] = await loop.run_in_executor(
+            None, tn.fetch_stats, ports.of(0)["service"])
+        info[f"down{k}_s"] = time.perf_counter() - t + T["down_s"]
+
+    async def round1():
+        loop = asyncio.get_running_loop()
+        half, restarted = asyncio.Event(), asyncio.Event()
+        t_start = time.perf_counter()
+        info["t_start"] = t_start
+
+        async def submitter(i):
+            client = JsonRpcClient(ports.of(i)["submit"], timeout=15.0)
+            try:
+                for b in range(bursts):
+                    if i == crash and b == bursts // 2:
+                        half.set()
+                        await restarted.wait()
+                        await client.close()
+                    txs = [(b"tx-%d-%05d-" % (i, b * T["burst"] + k)).ljust(
+                        T["tx_bytes"], b".") for k in range(T["burst"])]
+                    now = time.perf_counter()
+                    for tx in txs:
+                        submit_at[tx] = now
+                    await submit(client, txs)
+                    wake = t_start + (b + 1) * T["burst_every"]
+                    await asyncio.sleep(max(0.0, wake - time.perf_counter()))
+            finally:
+                await client.close()
+
+        async def crash_and_restart():
+            await half.wait()
+
+            async def minted():
+                # every transaction the node took in is in a minted
+                # event, so in its WAL: a mint takes its batches out of
+                # the pool before it signs them, so an empty pool alone
+                # can be a mint in flight, which a SIGKILL would lose
+                m = await loop.run_in_executor(None, metrics, crash)
+                return (m.get("babble_ingress_queue_depth", 1) == 0
+                        and m.get("babble_transaction_pool", 1) == 0
+                        and m.get("babble_coalesce_batch_txs_sum", -1)
+                        == m.get("babble_submitted_tx_total"))
+
+            await until(minted, 120, f"node {crash}'s transactions minted")
+            info["before"] = await loop.run_in_executor(None, metrics, crash)
+            await kill_and_restart(1)
+            restarted.set()
+
+        async def prober():
+            client = JsonRpcClient(probe_addr, timeout=60.0)
+            try:
+                while True:
+                    t = time.perf_counter()
+                    await client.call("State.CommitTxBatch", probe_wire)
+                    probe_acks.append(time.perf_counter() - t)
+                    await asyncio.sleep(T["probe_every_s"])
+            finally:
+                await client.close()
+
+        probe = asyncio.ensure_future(prober())
+        await asyncio.gather(crash_and_restart(),
+                             *(submitter(i) for i in range(n)))
+        info["t_submitted"] = time.perf_counter()
+
+        async def delivered():
+            return all(path in full_at for path in logs)
+
+        try:
+            await until(delivered, T["drain_s"],
+                        f"all {total} transactions in every app's log")
+        except AssertionError as e:
+            counts = [nlines.get(path, 0) for path in logs]
+            health = []
+            for i in range(n):
+                try:
+                    h = await loop.run_in_executor(
+                        None, tn.fetch_healthz, ports.of(i)["service"])
+                    health.append({k: h.get(k) for k in (
+                        "lcr", "commit_length", "undetermined",
+                        "transaction_pool", "reasons", "probe_armed")})
+                except OSError as err:
+                    health.append(str(err))
+            raise AssertionError(f"{e}: the apps hold {counts}; /healthz "
+                                 f"{health}; failures logged "
+                                 f"{log_check().failures[:8]}") from None
+        finally:
+            probe.cancel()
+        info["t_done"] = max(full_at.values())
+        info["metrics"] = [await loop.run_in_executor(None, metrics, i)
+                           for i in range(n)]
+        info["apps1"] = [lines(p) for p in logs]
+
+    async def round2():
+        """More traffic; node 3 is killed a seeded delay after a seeded
+        burst of its own was admitted, whatever it is doing then."""
+        loop = asyncio.get_running_loop()
+        scrape_now, scraped = asyncio.Event(), asyncio.Event()
+        go, restarted = asyncio.Event(), asyncio.Event()
+        t_start = time.perf_counter()
+
+        async def submitter(i):
+            client = JsonRpcClient(ports.of(i)["submit"], timeout=15.0)
+            try:
+                for b in range(bursts2):
+                    if i == crash and b == kill2_burst:
+                        scrape_now.set()
+                        await scraped.wait()
+                    txs = [(b"tx2-%d-%05d-" % (i, b * T["burst"] + k)).ljust(
+                        T["tx_bytes"], b".") for k in range(T["burst"])]
+                    for tx in txs:
+                        submit_at2[tx] = (i, b)
+                    await submit(client, txs)
+                    if i == crash and b == kill2_burst:
+                        go.set()
+                        await restarted.wait()
+                        await client.close()
+                    wake = t_start + (b + 1) * T["burst_every"]
+                    await asyncio.sleep(max(0.0, wake - time.perf_counter()))
+            finally:
+                await client.close()
+
+        async def profile_node0():
+            # node 0's own /debug/trace (torch.profiler) over part of
+            # the round: its device activities and busy share
+            url = (f"http://{ports.of(0)['service']}/debug/trace"
+                   f"?seconds={T['trace_s']}")
+
+            def get():
+                with urllib.request.urlopen(url, timeout=120) as r:
+                    return json.load(r)
+
+            out = await loop.run_in_executor(None, get)
+            info["trace"] = trace_busy(os.path.join(out["trace_dir"],
+                                                    "trace.json"))
+            shutil.rmtree(out["trace_dir"], ignore_errors=True)
+
+        async def crash_and_restart():
+            await scrape_now.wait()
+            info["before2"] = await loop.run_in_executor(None, metrics,
+                                                         crash)
+            scraped.set()
+            await go.wait()
+            await asyncio.sleep(kill2_delay)
+            await kill_and_restart(2)
+            restarted.set()
+
+        await asyncio.gather(crash_and_restart(), profile_node0(),
+                             *(submitter(i) for i in range(n)))
+        # what every app must come to hold: all but node 3's
+        # transactions from before the kill, which may be lost
+        need = len(info["apps1"][0]) + sum(
+            1 for i, b in submit_at2.values()
+            if i != crash or b > kill2_burst)
+        t0, last, stable = time.monotonic(), None, time.monotonic()
+        while True:
+            tail_once()
+            now = [nlines.get(p, 0) for p in logs]
+            if now != last:
+                last, stable = now, time.monotonic()
+            if min(now) >= need and len(set(now)) == 1 and \
+                    time.monotonic() - stable > T["settle_s"]:
+                break
+            if time.monotonic() - t0 > T["drain_s"]:
+                raise AssertionError(
+                    f"tcp testnet round 2: the apps hold {now}, want at "
+                    f"least {need} each and all equal; failures logged "
+                    f"{log_check().failures[:8]}")
+            await asyncio.sleep(0.1)
+        info["final"] = [await loop.run_in_executor(None, metrics, i)
+                         for i in range(n)]
+        info["alive"] = {i: p.poll() for i, p in runner.node_procs.items()}
+        info["apps"] = {i: p.poll() for i, p in runner.client_procs.items()}
+
+    async def run():
+        t0, wall = time.perf_counter(), info["t_spawn"]
+        for i in range(n):
+            await until(lambda i=i: stats_up(i), T["boot_s"],
+                        f"node {i}'s /Stats")
+            info["down"][ports.of(i)["gossip"]].append((wall, time.time()))
+        info["boot_s"] = time.perf_counter() - t0
+        await round1()
+        await round2()
+
+    tail = threading.Thread(target=tailer, daemon=True)
+    probe_proc = None
+    try:
+        try:
+            info["t_spawn"] = time.time()
+            runner.start()
+            probe_proc = subprocess.Popen(
+                [sys.executable, "-m", "babble_tpu_torch.cli", "dummy",
+                 "--node_addr", "127.0.0.1:1", "--listen", probe_addr,
+                 "--log", os.path.join(tmp, "probe.txt"), "--quiet"],
+                env=runner._env(), stdin=subprocess.DEVNULL,
+                stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+            tail.start()
+            asyncio.run(run())
+            tail_once()
+        finally:
+            done.set()
+            runner.stop()
+            if probe_proc is not None:
+                probe_proc.kill()
+                probe_proc.wait()
+        check = log_check()
+        boots = []
+        for i, d in enumerate(ddir):
+            with open(os.path.join(d, "node.log")) as f:
+                boots += [(i, m.group(1)) for m in re.finditer(
+                    r"^node \d+ on (.+?) listening on ", f.read(), re.M)]
+            with open(os.path.join(d, "dummy.log")) as f:
+                if "Traceback" in f.read():
+                    check.failures.append(f"app {i}: a traceback")
+        served = {ports.of(i)["gossip"]: m.get(
+            "babble_net_serve_timeouts_total", 0)
+            for i, m in enumerate(info["final"])}
+        served[crash_addr] += sum(info[k].get(
+            "babble_net_serve_timeouts_total", 0) for k in ("before",
+                                                            "before2"))
+        check.check_peer_timeouts(served)
+        peers = JSONPeers(ddir[0]).peers()
+        wal = WriteAheadLog(os.path.join(ddir[0], "wal"), fsync="off")
+        by_creator = {}
+        for ev in wal.recovered_events:
+            by_creator[ev.creator] = by_creator.get(ev.creator, 0) + 1
+        wal.close()
+        minted = [by_creator.get(p.pub_key_hex, 0) for p in peers]
+        olds = [lines(p) for p in befores]
+        apps = [lines(p) for p in logs]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # round 1: every transaction once, in one order
+    want = set(submit_at)
+    order = info["apps1"][0]
+    for i, got in enumerate(info["apps1"]):
+        if len(got) != total or len(set(got)) != total or set(got) != want:
+            raise AssertionError(
+                f"app {i} holds {len(got)} transactions, {len(set(got))} "
+                f"distinct, {len(set(got) & want)} of the {total} submitted")
+        if got != order:
+            k = next(j for j, (a, b) in enumerate(zip(got, order)) if a != b)
+            raise AssertionError(f"app {i} leaves app 0's order at {k}")
+    # round 2: one order, no transaction twice, round 1's order first,
+    # and only node 3's transactions from before the kill may be missing
+    final = apps[0]
+    for i, got in enumerate(apps):
+        if got != final:
+            k = next((j for j, (a, b) in enumerate(zip(got, final))
+                      if a != b), min(len(got), len(final)))
+            raise AssertionError(f"round 2: app {i} ({len(got)}) leaves app "
+                                 f"0's order ({len(final)}) at {k}")
+    if len(set(final)) != len(final):
+        raise AssertionError(f"round 2: {len(final) - len(set(final))} "
+                             "transactions delivered twice")
+    if final[:total] != order:
+        raise AssertionError("round 2 changed round 1's order")
+    for k, old in enumerate(olds, 1):
+        if old != final[:len(old)]:
+            raise AssertionError(f"node {crash}'s app before kill {k} left "
+                                 "the order")
+    lost = set(submit_at2) - set(final[total:])
+    stray = set(final[total:]) - set(submit_at2)
+    may_lose = {tx for tx, (i, b) in submit_at2.items()
+                if i == crash and b <= kill2_burst}
+    if stray or not lost <= may_lose:
+        raise AssertionError(
+            f"round 2: {len(stray)} transactions never submitted, "
+            f"{len(lost - may_lose)} lost that node {crash} did not hold "
+            "at the kill")
+    if any(v is not None for v in info["alive"].values()) or \
+            any(v is not None for v in info["apps"].values()):
+        raise AssertionError(f"processes exited: nodes {info['alive']}, "
+                             f"apps {info['apps']}")
+    # every node's own boot line (node 3's three times) names the card
+    if len(boots) != n + 2 or any(not dev.startswith(device)
+                                  for _, dev in boots):
+        raise AssertionError(f"boot lines: {boots}")
+    if check.failures:
+        raise AssertionError(f"{len(check.failures)} failures logged, "
+                             f"first: {check.failures[:3]}")
+
+    span = info["t_done"] - info["t_start"]
+    lat, lat_up = [], []
+    for tx, t in submit_at.items():
+        node = int(tx.split(b"-")[1])
+        lat.append(seen[node][tx] - t)
+        if node != crash:
+            lat_up.append(lat[-1])
+    print(f"[tcp] testnet: {n} `cli run` processes on {boots[0][1]} over "
+          f"TCP and {n} dummy apps; round 1: all {total} transactions in "
+          f"every app's messages.txt, each once, one order; node {crash}'s "
+          f"new app got that order from the first ({len(olds[0])} had "
+          f"reached its old app); no process exited but the killed one; "
+          f"failures logged 0; boot {info['boot_s']:.1f} s", flush=True)
+    print(f"[tcp] {total / span:.0f} transactions committed/s (first submit "
+          f"to the last app's {total}th: {span:.1f} s; submission took "
+          f"{info['t_submitted'] - info['t_start']:.1f} s; "
+          f"{info['shed']} shed and resubmitted in both rounds); "
+          f"submit->commit at "
+          f"the submitting node's app p50 {pctl(lat, 0.5) * 1e3:.0f} ms, "
+          f"p99 {pctl(lat, 0.99) * 1e3:.0f} ms (the nodes never killed: "
+          f"{pctl(lat_up, 0.5) * 1e3:.0f} / {pctl(lat_up, 0.99) * 1e3:.0f} "
+          f"ms); events minted in both rounds "
+          f"{sum(minted)} ({minted}, as node 0's WAL holds them); {card}",
+          flush=True)
+    for i, m in enumerate(info["metrics"] + [info["before"]]):
+        tag = f"node {i}" if i < n else f"node {crash} before kill 1"
+        calls = m.get("babble_consensus_seconds_count", 0)
+        mean = m.get("babble_consensus_seconds_sum", 0) / max(calls, 1)
+        print(f"[tcp] round 1, {tag}: run_consensus {calls:.0f} calls, mean "
+              f"{mean * 1e3:.1f} ms, p50 "
+              f"{scraped_pctl(m, 'babble_consensus_seconds', 0.5)}, p99 "
+              f"{scraped_pctl(m, 'babble_consensus_seconds', 0.99)} "
+              f"(registry buckets over /metrics); app delivery p50 "
+              f"{scraped_pctl(m, 'babble_commit_latency_seconds', 0.5)}; syncs "
+              f"{m.get('babble_sync_requests_total', 0):.0f} "
+              f"({m.get('babble_sync_errors_total', 0):.0f} failed), pushes "
+              f"{m.get('babble_push_total', 0):.0f} "
+              f"({m.get('babble_push_errors_total', 0):.0f} failed)",
+              flush=True)
+    pulls = sum(m.get("babble_sync_requests_total", 0)
+                for m in info["final"] + [info["before"], info["before2"]])
+    kinds = check.kinds
+    for k in (1, 2):
+        a, z = info[f"at_kill{k}"], info[f"at_back{k}"]
+        print(f"[tcp] kill {k}: node {crash} down {info[f'down{k}_s']:.1f} "
+              f"s (SIGKILL, then boot to /Stats {info[f'restart{k}_s']:.1f} "
+              f"s); node 0's last consensus round went from "
+              f"{a['last_consensus_round']} to {z['last_consensus_round']} "
+              f"and its committed transactions from "
+              f"{a['consensus_transactions']} to "
+              f"{z['consensus_transactions']}", flush=True)
+    b2 = info["before2"]
+    unminted = (b2.get("babble_transaction_pool", 0)
+                + b2.get("babble_ingress_queue_depth", 0)
+                + b2.get("babble_submitted_tx_total", 0)
+                - b2.get("babble_coalesce_batch_txs_sum", 0))
+    m3 = info["final"][crash]
+    print(f"[tcp] round 2: {len(submit_at2)} more transactions, node "
+          f"{crash} SIGKILLed {kill2_delay * 1e3:.1f} ms after its burst "
+          f"{kill2_burst} of {bursts2} was admitted, with {unminted:.0f} of "
+          f"its transactions not yet minted before that burst; every app "
+          f"holds one order of {len(final)}, none twice, round 1's first; "
+          f"{len(lost)} of node {crash}'s {len(may_lose)} transactions from "
+          f"before the kill lost; WAL replay at the last restart "
+          f"{m3.get('babble_wal_replayed_events_total', 0):.0f} events",
+          flush=True)
+    node_of = {ports.of(i)["gossip"]: i for i in range(n)}
+    split = ", ".join(f"node {node_of[a]} {r} {c}"
+                      for (a, r), c in sorted(check.gone.items()))
+    print(f"[tcp] pulls that failed, by class, both rounds: "
+          f"{kinds.get('pull timeout', 0)} of {pulls:.0f} timed out "
+          f"({kinds.get('pull timeout', 0) / max(pulls, 1):.1%}); "
+          f"{kinds.get('pull timeout (peer)', 0)} got the peer's own "
+          f"timeout (the peers counted {sum(served.values()):.0f}); "
+          f"{kinds.get('pull unreachable', 0)} unreachable, all to a "
+          f"node while it was down ({split or 'none'}); notices "
+          f"{ {k: v for k, v in kinds.items() if k in NodeLogCheck.NOTICES} }",
+          flush=True)
+    tr = info["trace"]
+    print(f"[tcp] node 0 profiled by its own /debug/trace for "
+          f"{T['trace_s']} s in round 2: {tr['events']} events, "
+          f"{tr['device']} of them device activities, "
+          f"busy {tr['busy_ms']:.1f} ms of the trace's {tr['window_ms']:.1f} "
+          f"ms = {tr['busy_ms'] / max(tr['window_ms'], 1e-9):.4f}; trace "
+          f"{tr['mb']:.2f} MB", flush=True)
+    acks = sorted(probe_acks)
+    if acks:
+        worst = acks[-1] / probe_mib
+        print(f"[tcp] app ack: a fifth dummy app acked a {probe_mib:.2f} MiB "
+              f"CommitTxBatch ({T['probe_txs']} transactions) in p50 "
+              f"{pctl(acks, 0.5) * 1e3:.1f} ms, max {acks[-1] * 1e3:.1f} ms "
+              f"({len(acks)} probes during round 1): at worst "
+              f"{worst * 1e3:.1f} ms a MiB against the proxy's wait of "
+              f"1,000 ms a MiB, a margin of {1 / worst:.1f}x", flush=True)
+    codec_costs(device)
+
+
 def main() -> int:
     import torch
 
@@ -1479,6 +2297,10 @@ def main() -> int:
         raise AssertionError("the node path launched la_walk")
     print(f"[node] la_walk launches in phase 8: 0; (a) {t1 - t0:.1f} s, "
           f"(b) {time.perf_counter() - t1:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    phase_tcp_testnet(card)
+    print(f"[tcp] phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [row]}), flush=True)

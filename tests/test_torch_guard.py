@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package nor msgpack nor cryptography (the card's machine has none), and
 runs a consensus step, a live stream, the engine, a churn flow, a
-checkpoint save and load, and a 3-node fleet of its ``Node`` (gossip to
-committed transactions, then a restart from the write-ahead log) with
-all four blocked."""
+checkpoint save and load, a 3-node fleet of its ``Node`` (gossip to
+committed transactions, then a restart from the write-ahead log), its
+cli's ``keygen`` and ``sim --device cpu`` as ``python -m`` runs them, and
+a round trip between two of its TCP transports, with all four
+blocked."""
 
 import ast
 import os
@@ -29,6 +31,11 @@ def _port_sources():
 
 def test_port_sources_import_no_jax():
     found = []
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {"cli.py", "testnet.py", "net/codec.py", "net/tcp_transport.py",
+            "proxy/admission.py", "proxy/jsonrpc.py", "proxy/socket_app.py",
+            "proxy/socket_babble.py", "proxy/dummy.py",
+            "service/service.py"} <= scanned
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -139,6 +146,50 @@ async def fleet():
 
 
 asyncio.run(fleet())
+
+# the process around the node: the cli as ``python -m`` runs it, and one
+# round trip between two port TCP transports
+import contextlib
+import io
+import json
+import runpy
+
+
+def cli(*argv):
+    out = io.StringIO()
+    sys.argv = ["babble_tpu_torch.cli", *argv]
+    with contextlib.redirect_stdout(out):
+        try:
+            runpy.run_module("babble_tpu_torch.cli", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+    return out.getvalue()
+
+
+assert cli("keygen").startswith("PublicKey:")
+sim = json.loads(cli("sim", "--device", "cpu", "--nodes", "4", "--events",
+                     "200", "--rounds", "32", "--seed", "3").splitlines()[-1])
+assert sim["ordered"] > 0 and sim["device"] == "cpu", sim
+from babble_tpu_torch.net import SyncRequest, SyncResponse, new_tcp_transport
+
+
+async def round_trip():
+    a = await new_tcp_transport("127.0.0.1:0")
+    b = await new_tcp_transport("127.0.0.1:0")
+
+    async def serve():
+        rpc = await b.consumer.get()
+        rpc.respond(SyncResponse(b.local_addr(), "0xH", [], {1: 2}))
+
+    t = asyncio.ensure_future(serve())
+    resp = await a.sync(b.local_addr(), SyncRequest(a.local_addr(), {0: 1}))
+    await t
+    await a.close()
+    await b.close()
+    assert (resp.head, resp.known) == ("0xH", {1: 2})
+
+
+asyncio.run(round_trip())
 blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
            and sys.modules[m] is not None]
 assert not blocked, blocked
