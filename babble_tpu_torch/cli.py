@@ -9,13 +9,17 @@
 - ``dummy``   — the reference's chat client (``proxy/dummy.py``).
 - ``testnet`` — ``conf``, ``run``, ``bombard`` and ``watch`` for a local
   fleet of port nodes (``testnet.py``).
+- ``chaos``   — ``list``, ``show`` and ``run`` the chaos plane's
+  scenarios (``chaos/``): the deterministic in-memory cluster, or a live
+  subprocess fleet with ``--live``.
 
 The flags and defaults are the JAX package's, plus ``--device`` (the
 card by default; ``--device cpu`` runs every stage in plain torch on the
 CPU).  The port has no XLA cache, so no ``--jax_cache``.  Flags that ask
 for machinery the port does not have yet (the byzantine and wide
-engines, the chaos plane) raise ``SystemExit`` naming its ROADMAP.md
-item instead of being ignored, and so do the verbs still to port.
+engines) raise ``SystemExit`` naming its ROADMAP.md item instead of
+being ignored, and so do the verbs still to port and a chaos scenario
+that runs the byzantine engine.
 """
 
 from __future__ import annotations
@@ -28,10 +32,6 @@ import time
 
 from .node.core import NOT_PORTED_BYZANTINE, NOT_PORTED_WIDE
 
-NOT_PORTED_CHAOS = (
-    "the chaos plane (chaos/) is not ported yet (ROADMAP.md Queue 1, "
-    "item 6: the chaos runner)"
-)
 NOT_PORTED_FLEET = (
     "{what} is not ported yet (ROADMAP.md Queue 1, item 5e: the fleet "
     "tools)"
@@ -42,7 +42,6 @@ NOT_PORTED_VERBS = {
     ("fleet",): NOT_PORTED_FLEET.format(what="the fleet verb (fleet.py)"),
     ("lint",): NOT_PORTED_FLEET.format(
         what="the lint verb (analysis/cli.py)"),
-    ("chaos",): NOT_PORTED_CHAOS,
     ("testnet", "health"): NOT_PORTED_FLEET.format(
         what="testnet health (fleet.py health_hosts)"),
     ("testnet", "trace"): NOT_PORTED_FLEET.format(
@@ -58,10 +57,6 @@ NOT_PORTED_FLAGS = (
     ("fork_caps", "", "--fork_caps", NOT_PORTED_BYZANTINE),
     ("engine", "fused", "--engine", NOT_PORTED_WIDE),
     ("wide_caps", "", "--wide_caps", NOT_PORTED_WIDE),
-    ("chaos_plan", "", "--chaos_plan", NOT_PORTED_CHAOS),
-    ("chaos_seed", None, "--chaos_seed", NOT_PORTED_CHAOS),
-    ("chaos_epoch", None, "--chaos_epoch", NOT_PORTED_CHAOS),
-    ("chaos_addrs", "", "--chaos_addrs", NOT_PORTED_CHAOS),
 )
 
 
@@ -200,6 +195,16 @@ async def _run_node(args) -> int:
         args.node_addr, max_pool=args.max_pool,
         timeout=conf.tcp_timeout,
     )
+    if args.chaos_plan:
+        # self-injected faults for live fleets: every node wraps its TCP
+        # transport in the same (plan, seed)-driven FaultyTransport the
+        # in-memory scenario runner uses, deriving its own link identity
+        # from the canonical peer order — no per-node flags needed.  The
+        # wall clock drives only the injector's tick cursor (--chaos_epoch
+        # keeps a restarted node in phase), never event bodies
+        transport = _chaos_wrap(transport, args, key, peers)
+        print(f"chaos plan {args.chaos_plan} active "
+              f"(seed {transport.injector.seed})", file=sys.stderr)
     if args.no_client:
         proxy = InmemAppProxy()
     else:
@@ -263,6 +268,78 @@ def _dump_flight_on_crash(node, datadir: str) -> None:
         print(f"flight recorder dumped to {path}", file=sys.stderr)
     except Exception as e:   # the dump must never mask the real crash
         print(f"flight dump failed: {e}", file=sys.stderr)
+
+
+def _chaos_wrap(transport, args, key, peers):
+    """Wrap a live node's transport in a FaultyTransport driven by the
+    scenario (or bare fault-plan) JSON at --chaos_plan.  Ticks map to
+    wall time through the scenario's tick_seconds; link identities are
+    canonical participant ids, so every node in the fleet derives the
+    same per-link fault streams from the shared seed."""
+    from .chaos import FaultInjector, FaultPlan, FaultyTransport, Scenario
+    from .net.peers import canonical_ids
+
+    with open(args.chaos_plan) as f:
+        spec = json.load(f)
+    joiners = 0
+    if "plan" in spec:
+        sc = Scenario.from_dict(spec)
+        plan, tick_seconds, seed = sc.plan, sc.tick_seconds, sc.seed
+        joiners = sc.joiners
+    else:
+        plan, tick_seconds, seed = FaultPlan.from_dict(spec), 0.05, 0
+    if args.chaos_seed is not None:
+        seed = args.chaos_seed
+    # Link identities: the fleet runner's address map when provided
+    # (--chaos_addrs, written by chaos run --live next to the scenario
+    # JSON) — the only exact source once joiners exist, because it
+    # names every scheduled joiner's address/index before the joiner's
+    # transition commits.  Without it, canonical ids over the FOUNDING
+    # set (a joiner's peers.json carries its own address too, and
+    # folding that key into the sort would renumber every founder's
+    # per-link fault stream); extra address-book entries take the
+    # joiner indices in address order.
+    if args.bootstrap_peers:
+        from .net.peers import peers_from_file
+
+        founders = peers_from_file(args.bootstrap_peers)
+    else:
+        founders = peers
+    if args.chaos_addrs:
+        with open(args.chaos_addrs) as f:
+            addr_index = {a: int(i) for a, i in json.load(f).items()}
+        own = addr_index[transport.local_addr()]
+    else:
+        ids = canonical_ids(founders)
+        addr_index = {p.net_addr: ids[p.pub_key_hex] for p in founders}
+        extra = sorted(
+            p.net_addr for p in peers if p.pub_key_hex not in ids
+        )
+        for j, addr in enumerate(extra):
+            addr_index[addr] = len(founders) + j
+        own = (ids[key.pub_hex] if key.pub_hex in ids
+               else addr_index[transport.local_addr()])
+    plan.validate(len(founders), joiners=joiners)
+    # tick 0 is the FLEET's epoch, not this process's boot: a node
+    # relaunched mid-run must rejoin the shared timeline, or it would
+    # replay the plan's partition/byzantine schedule out of phase with
+    # everyone else.  Without --chaos_epoch, boot time is the epoch.
+    epoch = args.chaos_epoch
+    if epoch is None:
+        epoch = time.time()
+    injector = FaultInjector(
+        plan, seed,
+        clock=lambda: (time.time() - epoch) / tick_seconds,
+        # the token bucket's refill clock: elapsed ticks x tick_seconds
+        # must equal elapsed wall seconds
+        tick_seconds=tick_seconds,
+    )
+    return FaultyTransport(
+        transport, injector, own, addr_index,
+        # the forge_snapshot actor needs its own participant key to
+        # re-sign the doctored proof
+        forge_key=(key if injector.is_snapshot_forger(own) else None),
+    )
 
 
 async def _checkpoint_loop(node, ckpt_dir: str, interval: float) -> None:
@@ -446,6 +523,64 @@ def cmd_testnet(args) -> int:
     raise SystemExit(f"unknown testnet subcommand {args.testnet_cmd}")
 
 
+def cmd_chaos(args) -> int:
+    from .chaos import (
+        CANNED,
+        Scenario,
+        canned_names,
+        load_scenario,
+        run_live,
+        run_scenario,
+    )
+
+    if args.chaos_cmd == "list":
+        for name in canned_names():
+            sc = CANNED[name]
+            print(f"{name}: {sc['nodes']} nodes, {sc['steps']} steps, "
+                  f"engine={sc.get('engine', 'fused')}, "
+                  f"invariants={','.join(sc['invariants'])}")
+        return 0
+    if args.chaos_cmd == "show":
+        print(json.dumps(load_scenario(args.scenario).to_dict(), indent=1))
+        return 0
+    if args.chaos_cmd == "run":
+        sc = load_scenario(args.scenario)
+        overrides = {}
+        if args.seed is not None:
+            overrides["seed"] = args.seed
+        if args.steps is not None:
+            overrides["steps"] = args.steps
+        if args.nodes is not None:
+            overrides["nodes"] = args.nodes
+        if overrides:
+            sc = Scenario.from_dict({**sc.to_dict(), **overrides})
+        if sc.engine == "byzantine":
+            raise SystemExit(
+                f"chaos run {sc.name}: {NOT_PORTED_BYZANTINE}")
+        if args.live:
+            report = run_live(sc, args.dir, device=args.device)
+            print(json.dumps(report, indent=1))
+            return 0 if report.get("advanced") else 1
+        result = run_scenario(sc, device=args.device)
+        if args.json:
+            print(json.dumps(result.to_dict(), indent=1))
+        else:
+            print(f"scenario {result.name} seed={result.seed} "
+                  f"steps={result.steps}")
+            print(f"fingerprint {result.fingerprint()}")
+            print(f"faults injected: {result.fault_counts or '{}'}")
+            print("consensus events: " + ", ".join(
+                f"node{i}={c}"
+                for i, c in sorted(result.consensus_counts_final.items())
+            ))
+            print(result.report.format())
+        if not result.report.ok:
+            print("CHAOS RUN FAILED: invariant violation(s) above",
+                  file=sys.stderr)
+        return 0 if result.report.ok else 1
+    raise SystemExit(f"unknown chaos subcommand {args.chaos_cmd}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="babble-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -582,14 +717,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="commit-latency SLO in ms for the /healthz "
                          "burn gauge")
     rn.add_argument("--chaos_plan", default="",
-                    help="scenario/fault-plan JSON (the chaos plane is "
-                         "not ported yet: ROADMAP item 6)")
+                    help="scenario/fault-plan JSON: wrap the transport "
+                         "in a seeded FaultyTransport (chaos testing)")
     rn.add_argument("--chaos_seed", type=int, default=None,
-                    help="override the chaos plan's seed (ROADMAP item 6)")
+                    help="override the chaos plan's seed")
     rn.add_argument("--chaos_epoch", type=float, default=None,
-                    help="fleet-wide chaos tick 0 (ROADMAP item 6)")
+                    help="fleet-wide tick-0 (unix seconds) so restarted "
+                         "nodes rejoin the shared chaos timeline "
+                         "(default: this process's boot time)")
     rn.add_argument("--chaos_addrs", default="",
-                    help="chaos link identities (ROADMAP item 6)")
+                    help="JSON map of gossip address -> scenario node "
+                         "index (written by chaos run --live): the "
+                         "exact link-identity source once joiners "
+                         "exist; default derives identities from the "
+                         "founding peer set")
     rn.add_argument("--device", default="cuda",
                     help="torch device of the node's engine (the card "
                          "by default; 'cpu' runs plain torch on the CPU)")
@@ -649,6 +790,37 @@ def build_parser() -> argparse.ArgumentParser:
                             help="txs per Babble.SubmitTxBatch call "
                                  "(many-client harness only)")
         sp.set_defaults(fn=cmd_testnet)
+
+    chp = sub.add_parser("chaos", help="seeded fault injection + "
+                         "consensus invariant checking "
+                         "(babble_tpu_torch/chaos)")
+    csub = chp.add_subparsers(dest="chaos_cmd", required=True)
+    cl = csub.add_parser("list", help="list the canned scenarios")
+    cl.set_defaults(fn=cmd_chaos)
+    cs = csub.add_parser("show", help="print a scenario as JSON "
+                         "(schema-by-example for custom plans)")
+    cs.add_argument("scenario", help="canned name or scenario JSON path")
+    cs.set_defaults(fn=cmd_chaos)
+    cr = csub.add_parser("run", help="run a scenario and check its "
+                         "invariants (exit 1 on violation)")
+    cr.add_argument("scenario", help="canned name or scenario JSON path")
+    cr.add_argument("--seed", type=int, default=None,
+                    help="override the scenario seed (same seed = "
+                         "bit-identical fault schedule + committed order)")
+    cr.add_argument("--steps", type=int, default=None)
+    cr.add_argument("--nodes", type=int, default=None)
+    cr.add_argument("--json", action="store_true",
+                    help="dump the full result (fault schedule, per-node "
+                         "orders, invariant report) as JSON")
+    cr.add_argument("--live", action="store_true",
+                    help="run against a live subprocess testnet instead "
+                         "of the deterministic in-memory cluster")
+    cr.add_argument("--dir", default="chaos-data",
+                    help="datadir for --live fleets")
+    cr.add_argument("--device", default="cuda",
+                    help="torch device of every node's engine (the card "
+                         "by default; 'cpu' runs plain torch on the CPU)")
+    cr.set_defaults(fn=cmd_chaos)
     return p
 
 

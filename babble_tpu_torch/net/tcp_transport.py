@@ -440,15 +440,18 @@ class TCPTransport(Transport):
         try:
             conn = await self._get_conn(target)
             return await conn.call(req, timeout)
+        except asyncio.TimeoutError as e:
+            # dial timeout (call timeouts already raise TransportError);
+            # caught first: asyncio.TimeoutError is TimeoutError, an
+            # OSError, so the clause below would read it as an empty
+            # "sync to X failed: "
+            raise TransportError(f"dial to {target} timed out") from e
         except (ConnectionError, OSError, asyncio.IncompleteReadError) as e:
             conn = self._conns.get(target)
             if conn is not None:
                 conn.close()
                 self._conns.pop(target, None)
             raise TransportError(f"sync to {target} failed: {e}") from e
-        except asyncio.TimeoutError as e:
-            # dial timeout (call timeouts already raise TransportError)
-            raise TransportError(f"dial to {target} timed out") from e
 
     async def close(self) -> None:
         self._closed = True

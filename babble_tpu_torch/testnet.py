@@ -37,6 +37,9 @@ from typing import Dict, List, Optional
 from .crypto.keys import PemKeyFile, generate_key
 from .net.peers import JSONPeers, Peer
 
+#: seconds between a checkpointing node's saves (--checkpoint_interval)
+CHECKPOINT_INTERVAL_S = 5.0
+
 
 @dataclass
 class PortLayout:
@@ -89,15 +92,22 @@ def free_port_layout(n: int, tries: int = 64) -> PortLayout:
 
 
 def build_conf(base_dir: str, n: int, ports: Optional[PortLayout] = None,
-               overwrite: bool = False) -> List[str]:
+               overwrite: bool = False, joiners: int = 0) -> List[str]:
     """Create node datadirs with keys + the shared peers.json
-    (reference docker/scripts/build-conf.sh:1-45)."""
+    (reference docker/scripts/build-conf.sh:1-45).
+
+    ``joiners`` (membership plane) creates ``joiners`` extra datadirs
+    past the founding set: each gets its own key, a peers.json naming
+    the founders PLUS itself (its gossip address book), and a
+    ``bootstrap_peers.json`` naming the founders only (its epoch-0
+    validator set — the node runs as an observer until its signed join
+    tx commits; cli --bootstrap_peers)."""
     ports = ports or PortLayout()
     if overwrite and os.path.isdir(base_dir):
         shutil.rmtree(base_dir)
     keys = []
     datadirs = []
-    for i in range(n):
+    for i in range(n + joiners):
         d = os.path.join(base_dir, f"node{i}")
         os.makedirs(d, exist_ok=True)
         pem = PemKeyFile(d)
@@ -105,12 +115,22 @@ def build_conf(base_dir: str, n: int, ports: Optional[PortLayout] = None,
         if not pem.exists():
             pem.write(keys[-1])
         datadirs.append(d)
-    peers = [
+    founders = [
         Peer(net_addr=ports.of(i)["gossip"], pub_key_hex=keys[i].pub_hex)
         for i in range(n)
     ]
-    for d in datadirs:
-        JSONPeers(d).set_peers(peers)
+    for i, d in enumerate(datadirs):
+        if i < n:
+            JSONPeers(d).set_peers(founders)
+        else:
+            JSONPeers(d).set_peers(founders + [
+                Peer(net_addr=ports.of(i)["gossip"],
+                     pub_key_hex=keys[i].pub_hex)
+            ])
+            with open(os.path.join(d, "bootstrap_peers.json"), "w") as f:
+                json.dump([{"NetAddr": p.net_addr,
+                            "PubKeyHex": p.pub_key_hex}
+                           for p in founders], f, indent=1)
     return datadirs
 
 
@@ -127,10 +147,20 @@ class TestnetRunner:
     tcp_timeout_ms: int = 200
     with_clients: bool = True
     ports: PortLayout = field(default_factory=PortLayout)
+    extra_node_args: List[str] = field(default_factory=list)
+    #: per-node checkpoint dirs + a tight save interval, so a killed
+    #: node restarts from recent state instead of a fresh root
+    checkpoints: bool = False
     #: per-node write-ahead logs (<datadir>/wal): restart recovery is
     #: seq-exact — an honest node replays its log at restart and
     #: resumes at its published head seq instead of re-minting indexes
     wal: bool = False
+    #: membership plane: datadirs prepared for nodes past the founding
+    #: set (indices n..n+joiners-1).  They are NOT booted by start() —
+    #: the runner calls spawn_joiner(i) at its scheduled tick; the
+    #: joiner runs as an observer (--bootstrap_peers) until its signed
+    #: join tx commits at an epoch boundary.
+    joiners: int = 0
     #: every node's --device: the card by default; "cpu" runs each node
     #: in plain torch on the CPU (the nodes of one host share one card
     #: as separate CUDA contexts, time-sliced without MPS)
@@ -164,7 +194,16 @@ class TestnetRunner:
             "--cache_size", str(self.cache_size),
             "--log_level", "warning",
             "--device", self.device,
-        ]
+        ] + self.extra_node_args
+        if i >= self.n:
+            # joiner: founders-only epoch-0 validator set; observer
+            # until its join tx's boundary admits it
+            args += ["--bootstrap_peers",
+                     os.path.join(d, "bootstrap_peers.json")]
+        if self.checkpoints:
+            args += ["--checkpoint_dir", os.path.join(d, "ckpt"),
+                     "--checkpoint_interval",
+                     str(CHECKPOINT_INTERVAL_S)]
         if self.wal:
             # batch fsync: a kill -9 may tear the final record, which
             # recovery truncates and the seq probe then covers
@@ -203,6 +242,19 @@ class TestnetRunner:
         self.procs.append(proc)
         return proc
 
+    def spawn_joiner(self, i: int) -> None:
+        """Boot joiner ``i`` (an index past the founding set) plus its
+        dummy app when the fleet runs clients — the membership plane's
+        live-churn runner calls this at the join op's scheduled tick."""
+        if not (self.n <= i < self.n + self.joiners):
+            raise ValueError(f"joiner index {i} outside "
+                             f"[{self.n}, {self.n + self.joiners})")
+        if i in self.node_procs:
+            return
+        self.procs.append(self._spawn_node(i))
+        if self.with_clients:
+            self.spawn_client(i)
+
     def kill_client(self, i: int) -> None:
         """Hard-stop node i's dummy app."""
         proc = self.client_procs.pop(i, None)
@@ -213,7 +265,8 @@ class TestnetRunner:
         self.procs.remove(proc)
 
     def start(self) -> None:
-        build_conf(self.base_dir, self.n, self.ports)
+        build_conf(self.base_dir, self.n, self.ports,
+                   joiners=self.joiners)
         for i in range(self.n):
             self.procs.append(self._spawn_node(i))
             if self.with_clients:

@@ -161,6 +161,36 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    and one fast-forward frame cost through ``net/codec.py``.  The nodes
    run in their own processes, so la_walk's count is not visible here;
    the engine never takes the walk mode (phases 6-8).
+10. chaos — the chaos plane (``chaos/``).  (a) The deterministic
+   in-memory cluster runner (``run_scenario(..., device="cuda")``: real
+   ``Node``s over ``FaultyTransport``-wrapped in-memory transports, one
+   gossip exchange a step, consensus every 6 steps, a logical clock) on
+   every canned scenario that runs the fused engine (``CHAOS_SWEEP``: 14
+   of the 15; fork-attack's byzantine engine is not ported) at seeds 1
+   and 2, and on the JAX package's mini-disk-rot at seeds 1 and 2: crash
+   and WAL restarts, rotten checkpoints and torn WALs, eviction past a
+   dead creator and fast-forward rejoins, a forged snapshot refused on
+   its proof, joins and leaves under load and partition, clock skew and
+   lying timestamps (each with its drift-free twin run), stale replays,
+   WAN loss models, partitions, slow peers and flaky links.  Each run's
+   fingerprint (SHA-256 over the fault schedule and every node's
+   committed and consensus order), committed transactions per node,
+   faults by kind and invariant verdict must equal the JAX package's
+   (``CHAOS_EXPECT``, made on the CPU by ``JAX_PLATFORMS=cpu python -m
+   tests.test_torch_chaos_scenarios --jobs 4``); the mini-disk-rot
+   fingerprints are the JAX package's committed pins.  It prints each
+   run's wall time, its ``run_consensus`` calls with their p50/p99 ms
+   and surfaces, and its faults.  (b) crash-restart as a live fleet:
+   ``chaos.run_live`` with four ``cli run --device cuda --chaos_plan``
+   processes over loopback TCP (checkpoints and a WAL each), node 3
+   SIGKILLed at tick 0 and restarted at tick 340 from the plan, the tick
+   stretched to ``CHAOS_LIVE["tick_seconds"]`` and a drop rate
+   (``CHAOS_LIVE["drop"]``) added on every link; every node must report
+   consensus on /Stats (node 3 back after its restart), every node's
+   ``babble_chaos_faults_total`` must be read from ``/metrics``, the
+   drops counted there must be above 0, and every node must have booted
+   on the card under the plan.  la_walk's
+   count stays 0.
 
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -307,6 +337,210 @@ TCP_TESTNET = dict(nodes=4, heartbeat_ms=10, cache_size=50000,
 # gossip events, 64-byte transactions) and one fast-forward frame (a
 # FastForwardResponse with the snapshot of an engine holding them)
 CODEC_FRAME = dict(n=4, events=4096, seed=11, tx_bytes=64)
+
+# phase 10: the chaos plane (babble_tpu_torch/chaos): the canned scenarios
+# that run the fused engine (all but fork-attack, whose byzantine engine
+# is ROADMAP.md Queue 1 item 7), 4 nodes each at the JAX package's step
+# counts, at seeds 1 and 2, and the JAX package's mini-disk-rot
+# (tests/test_chaos_scenarios.py _MINI_DISKROT) at seeds 1 and 2
+CHAOS_SWEEP = [
+    "clock-skew", "crash-restart", "dead-creator", "disk-rot", "flaky-link",
+    "forged-snapshot", "join-under-load", "join-under-partition",
+    "leave-mid-outage", "lying-ts", "minority-partition", "slow-peer",
+    "stale-replay", "wan-lossy",
+]
+CHAOS_SEEDS = (1, 2)
+CHAOS_MINI_DISKROT = {
+    "name": "mini-disk-rot", "nodes": 3, "steps": 130, "seed": 5,
+    "cache_size": 1024,
+    "txs": 6, "tx_every": 10, "settle_rounds": 4, "liveness_bound": 70,
+    "checkpoint_every": 16,
+    "invariants": ["prefix_agreement", "liveness"],
+    "plan": {
+        "crashes": [{"node": 2, "crash": 40, "restart": 60}],
+        "disk": {"checkpoint_corrupt": 1.0, "wal_truncate": 1.0},
+    },
+}
+# phase 10(b): crash-restart as a live fleet of cli processes over TCP;
+# a tick stretched from the scenario's 0.05 s so that a node's boot on
+# the card (torch import, CUDA context: 6-17 s in phase 9) fits inside
+# the ticks after its restart, as the JAX package's slow live test
+# stretches its tick for a CPU container; a drop rate on every link, so
+# that FaultyTransport over TcpTransport injects faults the phase counts
+CHAOS_LIVE = dict(scenario="crash-restart", tick_seconds=0.2, rate=25.0,
+                  drop=0.05)
+# each run of the sweep under the JAX package: fingerprint (fault
+# schedule, every node's committed and consensus order), committed
+# transactions per node, faults by kind, invariants held; from a CPU run
+# of ``JAX_PLATFORMS=cpu python -m tests.test_torch_chaos_scenarios
+# --jobs 4`` (chip_reference)
+CHAOS_EXPECT = {'clock-skew': {1: {'fingerprint': '7415e8d361432a754088de1b90a0a58ffcf35f944ac02456eaa54f5d8c802aff',
+                    'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                    'fault_counts': {'clock_skew': 4, 'drop': 10},
+                    'ok': True},
+                2: {'fingerprint': '7e5880eb34b02058ffd007e011d491ba4863682b1af63763a868b646cd8d1808',
+                    'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                    'fault_counts': {'clock_skew': 4, 'drop': 11},
+                    'ok': True}},
+ 'crash-restart': {1: {'fingerprint': 'c863f0fa3ad78e201be58e47726dc6e16d41072bce05ce1ddcbb414956b1a0f6',
+                       'committed': {0: 12, 1: 12, 2: 12, 3: 0},
+                       'fault_counts': {'crash': 1, 'restart': 1},
+                       'ok': True},
+                   2: {'fingerprint': 'b7773cbad86a037f0ef456422e44fa170d70958a04f78aa909dfaf21400f7cac',
+                       'committed': {0: 12, 1: 12, 2: 12, 3: 0},
+                       'fault_counts': {'crash': 1, 'restart': 1},
+                       'ok': True}},
+ 'dead-creator': {1: {'fingerprint': '9c8d46a537a85872ad7bdb22e4ac69e05db963ee155f8eafef09b18da0c37f93',
+                      'committed': {0: 12, 1: 12, 2: 12, 3: 0},
+                      'fault_counts': {'crash': 1, 'restart': 1},
+                      'ok': True},
+                  2: {'fingerprint': 'f2a81cb01167e1fa859c509edeae2cc9b0a6d84266def96fc85692e1a9bb9ca6',
+                      'committed': {0: 12, 1: 12, 2: 12, 3: 0},
+                      'fault_counts': {'crash': 1, 'restart': 1},
+                      'ok': True}},
+ 'disk-rot': {1: {'fingerprint': 'c026c1ea5449979147fa6cd938746cc52a38b2c8781df65b8f928fcd0a0df1ab',
+                  'committed': {0: 12, 1: 12, 2: 12, 3: 12},
+                  'fault_counts': {'checkpoint_corrupt': 1,
+                                   'crash': 1,
+                                   'drop': 7,
+                                   'restart': 1},
+                  'ok': True},
+              2: {'fingerprint': '2d2c819be263b28243ae6fa91a8ea13dc1113e5df36e2e3f50bcef040f008005',
+                  'committed': {0: 12, 1: 12, 2: 12, 3: 12},
+                  'fault_counts': {'checkpoint_corrupt': 1,
+                                   'crash': 1,
+                                   'drop': 12,
+                                   'restart': 1,
+                                   'wal_truncate': 1},
+                  'ok': True}},
+ 'flaky-link': {1: {'fingerprint': '8bdd06cbb0bbaefd39a4afd745a3a5eb464baf214e437e6c8cad36eb4ac1b947',
+                    'committed': {0: 20, 1: 20, 2: 20, 3: 20},
+                    'fault_counts': {'delay': 44,
+                                     'drop': 37,
+                                     'duplicate': 16,
+                                     'reorder': 25},
+                    'ok': True},
+                2: {'fingerprint': 'd9ddd249b25a5396354558f9da94224fb30aecbf53f330b8821bfc0b1a8469a1',
+                    'committed': {0: 20, 1: 20, 2: 20, 3: 20},
+                    'fault_counts': {'delay': 41,
+                                     'drop': 27,
+                                     'duplicate': 21,
+                                     'reorder': 17},
+                    'ok': True}},
+ 'forged-snapshot': {1: {'fingerprint': '34cbe2f22078e13b34ee8fd89c3f491627c8287197045509d8d18da8e07cded2',
+                         'committed': {0: 12, 1: 12, 2: 12, 3: 0},
+                         'fault_counts': {'crash': 1,
+                                          'forged_snapshot': 2,
+                                          'restart': 1},
+                         'ok': True},
+                     2: {'fingerprint': '7c2c019f37575924db0e82c8d9a159c1e9c4e25f686c6a1f574c21a7b7f99937',
+                         'committed': {0: 12, 1: 12, 2: 12, 3: 0},
+                         'fault_counts': {'crash': 1,
+                                          'forged_snapshot': 1,
+                                          'restart': 1},
+                         'ok': True}},
+ 'join-under-load': {1: {'fingerprint': '22f32452f8ad66185f78fc725e207c849468f0f4d1a8c71b0c8adff2685230c9',
+                         'committed': {0: 26, 1: 26, 2: 26, 3: 26, 4: 26},
+                         'fault_counts': {'drop': 20,
+                                          'join': 1,
+                                          'leave': 1},
+                         'ok': True},
+                     2: {'fingerprint': '1c3dad457137b70fe593ad85c692e8a720ccedbf8f69de2b5cbef32b5287c9a9',
+                         'committed': {0: 26, 1: 26, 2: 26, 3: 26, 4: 26},
+                         'fault_counts': {'drop': 17,
+                                          'join': 1,
+                                          'leave': 1},
+                         'ok': True}},
+ 'join-under-partition': {1: {'fingerprint': '064bfa624c1f356b7287bfc7a2a03373ab806cc4ea8640b0ead7ca234fc4a314',
+                              'committed': {0: 17,
+                                            1: 17,
+                                            2: 17,
+                                            3: 17,
+                                            4: 17},
+                              'fault_counts': {'drop': 11,
+                                               'join': 1,
+                                               'partition': 50},
+                              'ok': True},
+                          2: {'fingerprint': '2239d1298644203db652cb0a5c441fd6e96c4b0fc528835f0c779196cf1e2386',
+                              'committed': {0: 17,
+                                            1: 17,
+                                            2: 17,
+                                            3: 17,
+                                            4: 17},
+                              'fault_counts': {'drop': 10,
+                                               'join': 1,
+                                               'partition': 51},
+                              'ok': True}},
+ 'leave-mid-outage': {1: {'fingerprint': 'bf3ffd8c2d92865750b15dcc7c1da6269b15cdf12d3e54fa52fd47e2d9b38056',
+                          'committed': {0: 17, 1: 17, 2: 17, 3: 17},
+                          'fault_counts': {'crash': 1,
+                                           'leave': 1,
+                                           'restart': 1},
+                          'ok': True},
+                      2: {'fingerprint': '3801b10c3f4daa220613fe8d8811e0974ef82059e21427db911167c4c6f84a2f',
+                          'committed': {0: 17, 1: 17, 2: 17, 3: 17},
+                          'fault_counts': {'crash': 1,
+                                           'leave': 1,
+                                           'restart': 1},
+                          'ok': True}},
+ 'lying-ts': {1: {'fingerprint': '9ef23e38a45c8c3e6a938d7e2729456d8f63afb945c288ed974ecb2b6795586c',
+                  'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                  'fault_counts': {'drop': 10, 'lying_ts': 27},
+                  'ok': True},
+              2: {'fingerprint': 'e08741edf122edb42bf53ae09ca36b2637f86cd33c2002bf6dbb5f08e1808ba1',
+                  'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                  'fault_counts': {'drop': 11, 'lying_ts': 30},
+                  'ok': True}},
+ 'mini-disk-rot': {1: {'fingerprint': 'c8b4c577887e3a12d3b969afefcbfd38596afef716b136b5b3ace47ca4c6b959',
+                       'committed': {0: 6, 1: 6, 2: 6},
+                       'fault_counts': {'checkpoint_corrupt': 1,
+                                        'crash': 1,
+                                        'restart': 1,
+                                        'wal_truncate': 1},
+                       'ok': True},
+                   2: {'fingerprint': '28b549da395d0dff11449b6eac6c562a98d1e5769d8e7bf691c23153ad0cf1df',
+                       'committed': {0: 6, 1: 6, 2: 6},
+                       'fault_counts': {'checkpoint_corrupt': 1,
+                                        'crash': 1,
+                                        'restart': 1,
+                                        'wal_truncate': 1},
+                       'ok': True}},
+ 'minority-partition': {1: {'fingerprint': 'd07d43189fc7e534406b487f6b0f0355ed4b01903d4ff43c0d8f57b608f9a7e5',
+                            'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                            'fault_counts': {'drop': 10, 'partition': 54},
+                            'ok': True},
+                        2: {'fingerprint': 'b9d080a926cdaa848eebd179564c09e68f189cddeeceaba12d08d9d8dbec561a',
+                            'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                            'fault_counts': {'drop': 12, 'partition': 57},
+                            'ok': True}},
+ 'slow-peer': {1: {'fingerprint': '535999092a57cec6eeef0333f907f0fd1e3d233d7b58cecbd373c3634c501d3f',
+                   'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                   'fault_counts': {'delay': 109, 'drop': 6},
+                   'ok': True},
+               2: {'fingerprint': '30e4e86fb31b6e96ba8409040950c19102487c05a75831f8e3ad481bea28a492',
+                   'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                   'fault_counts': {'delay': 111, 'drop': 8},
+                   'ok': True}},
+ 'stale-replay': {1: {'fingerprint': '181955537bb98b43323a4ced5c117abea497eef339ca6ba139e2c0d835bdf6b7',
+                      'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                      'fault_counts': {'drop': 9, 'stale_replay': 29},
+                      'ok': True},
+                  2: {'fingerprint': '68a7226a632b959f0444767870b6fcd7bc7def2c2a641f9bf7abca510b6de63e',
+                      'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                      'fault_counts': {'drop': 10, 'stale_replay': 24},
+                      'ok': True}},
+ 'wan-lossy': {1: {'fingerprint': '6d6554caa008c4a95cd02b8ea907904a04bdbfa49cc63f2bd8766e6aacdf28cd',
+                   'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                   'fault_counts': {'bw_delay': 254,
+                                    'delay': 44,
+                                    'ge_drop': 26},
+                   'ok': True},
+               2: {'fingerprint': 'f687b6bd3dba9c82734d1de891f98f0f52df17b3e048aecf88b0297e535fb84a',
+                   'committed': {0: 16, 1: 16, 2: 16, 3: 16},
+                   'fault_counts': {'bw_delay': 223,
+                                    'delay': 35,
+                                    'ge_drop': 57},
+                   'ok': True}}}
 
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
@@ -2246,6 +2480,163 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
     codec_costs(device)
 
 
+def chaos_summary(result) -> dict:
+    """What CHAOS_EXPECT holds of a run."""
+    return {
+        "fingerprint": result.fingerprint(),
+        "committed": {i: len(v) for i, v in sorted(result.committed.items())},
+        "fault_counts": dict(sorted(result.fault_counts.items())),
+        "ok": result.report.ok,
+    }
+
+
+class ConsensusCalls:
+    """Wall ms and surface of every ``run_consensus`` of every engine
+    while it is entered (the nodes call ``run_consensus_timed`` from the
+    default executor's thread, one at a time)."""
+
+    def __enter__(self):
+        from babble_tpu_torch.consensus.engine import TorchHashgraph
+
+        self.ms, self.kinds = [], []
+        self._cls = TorchHashgraph
+        self._real = real = TorchHashgraph.run_consensus_timed
+        calls = self
+
+        def timed(engine):
+            t0 = time.perf_counter()
+            out = real(engine)
+            calls.ms.append((time.perf_counter() - t0) * 1e3)
+            calls.kinds.append(engine.last_kernel_class)
+            return out
+
+        TorchHashgraph.run_consensus_timed = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run_consensus_timed = self._real
+
+    def line(self) -> str:
+        if not self.ms:
+            return "no run_consensus calls"
+        return calls_line(self.ms, self.kinds)
+
+
+def chaos_scenario(name: str, seed: int):
+    from babble_tpu_torch.chaos import Scenario, load_scenario
+
+    if name == "mini-disk-rot":
+        return Scenario.from_dict({**CHAOS_MINI_DISKROT, "seed": seed})
+    return load_scenario(name)
+
+
+def phase_chaos_sweep(card: str, device="cuda", runs=None) -> None:
+    """Phase 10(a): the canned scenarios through the deterministic
+    in-memory runner on the card, each run held to CHAOS_EXPECT (module
+    docstring)."""
+    from babble_tpu_torch.chaos import run_scenario
+
+    if runs is None:
+        runs = [(name, seed) for name in CHAOS_SWEEP + ["mini-disk-rot"]
+                for seed in CHAOS_SEEDS]
+    # every dropped or partitioned sync is a logged warning: thousands
+    # of lines a run, none of them a failure (the invariants judge)
+    logging.disable(logging.WARNING)
+    failed = []
+    t_all = time.perf_counter()
+    try:
+        for name, seed in runs:
+            t0 = time.perf_counter()
+            with ConsensusCalls() as calls:
+                result = run_scenario(chaos_scenario(name, seed), seed=seed,
+                                      device=device)
+            wall = time.perf_counter() - t0
+            got, want = chaos_summary(result), CHAOS_EXPECT[name][seed]
+            verdict = "== CHAOS_EXPECT" if got == want else "!= CHAOS_EXPECT"
+            print(f"[chaos] (a) {name} seed {seed}: {verdict}, fingerprint "
+                  f"{got['fingerprint'][:16]}, committed "
+                  f"{list(got['committed'].values())}, invariants "
+                  f"{'hold' if got['ok'] else 'VIOLATED'}; wall {wall:.1f} "
+                  f"s, {calls.line()}; faults {got['fault_counts']}",
+                  flush=True)
+            if got != want:
+                if not got["ok"]:
+                    print(result.report.format(), flush=True)
+                failed.append((name, seed, {k: (got[k], want[k])
+                                            for k in got if got[k] != want[k]}))
+    finally:
+        logging.disable(logging.NOTSET)
+    print(f"[chaos] (a) {len(runs)} runs in {time.perf_counter() - t_all:.1f}"
+          f" s; {card}", flush=True)
+    if failed:
+        raise AssertionError(f"chaos runs != the JAX package's (port, JAX): "
+                             f"{failed}")
+
+
+def phase_chaos_live(card: str, device="cuda") -> None:
+    """Phase 10(b): crash-restart against four ``cli run --chaos_plan``
+    processes over TCP (``chaos.run_live``; module docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    from babble_tpu_torch import testnet as tn
+    from babble_tpu_torch.chaos import Scenario, load_scenario, run_live
+
+    L = CHAOS_LIVE
+    d = load_scenario(L["scenario"]).to_dict()
+    d["plan"]["default"] = {**d["plan"].get("default", {}),
+                            "drop": L["drop"]}
+    sc = Scenario.from_dict({**d, "tick_seconds": L["tick_seconds"]})
+    crashed = sorted({c.node for c in sc.plan.crashes})
+    tmp = tempfile.mkdtemp(prefix="babble-chaos-live-")
+    t0 = time.perf_counter()
+    try:
+        report = run_live(sc, tmp, rate=L["rate"], device=device,
+                          ports=tn.free_port_layout(sc.nodes),
+                          log=lambda m: print(f"[chaos] (b) {m}", flush=True))
+        wall = time.perf_counter() - t0
+        logs = {i: open(os.path.join(tmp, f"node{i}", "node.log")).read()
+                for i in range(sc.nodes)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats, faults = report["stats"], report["chaos_faults"]
+    for i, row in enumerate(stats):
+        print(f"[chaos] (b) node {i}: "
+              + (f"/Stats error {row['error']}" if "error" in row else
+                 f"consensus events {row.get('consensus_events')}, "
+                 f"transactions {row.get('consensus_transactions')}, last "
+                 f"round {row.get('last_consensus_round')}")
+              + f"; chaos faults {faults.get(str(i))}", flush=True)
+    print(f"[chaos] (b) {sc.name} live: {sc.nodes} cli run --device "
+          f"{device} --chaos_plan processes, tick_seconds "
+          f"{L['tick_seconds']} (the scenario's 0.05 stretched), drop "
+          f"{L['drop']} on every link, {sc.steps} ticks, {L['rate']} tx/s "
+          f"bombard; advanced "
+          f"{report['advanced']}; wall {wall:.1f} s; {card}", flush=True)
+    if not report["advanced"]:
+        raise AssertionError(f"live {sc.name}: consensus did not advance on "
+                             f"every reachable node: {stats}")
+    bad = {i: f for i, f in faults.items() if "error" in f or not f}
+    if bad or len(faults) != sc.nodes:
+        raise AssertionError(f"live {sc.name}: babble_chaos_faults_total not "
+                             f"read on every node: {faults}")
+    dropped = sum(f.get("drop", 0) for f in faults.values())
+    print(f"[chaos] (b) drops injected over TCP: {dropped:g}", flush=True)
+    if dropped <= 0:
+        raise AssertionError(f"live {sc.name}: no drop injected on any link "
+                             f"under drop {L['drop']}: {faults}")
+    for i in crashed:
+        if "error" in stats[i] or int(stats[i]["consensus_events"]) <= 0:
+            raise AssertionError(f"live {sc.name}: restarted node {i} not "
+                                 f"back on /Stats with consensus: {stats[i]}")
+    for i, text in logs.items():
+        if f" on {device}" not in text or "chaos plan " not in text:
+            raise AssertionError(f"live {sc.name}: node {i} did not boot on "
+                                 f"{device} under the chaos plan:\n"
+                                 f"{text[-2000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -2301,6 +2692,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_tcp_testnet(card)
     print(f"[tcp] phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    la_walk.launches = 0
+    t0 = time.perf_counter()
+    phase_chaos_sweep(card)
+    t1 = time.perf_counter()
+    phase_chaos_live(card)
+    if la_walk.launches:
+        raise AssertionError("the chaos sweep launched la_walk")
+    print(f"[chaos] la_walk launches in phase 10: 0; phase 10 "
+          f"{time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s, (b) "
+          f"{time.perf_counter() - t1:.1f} s)", flush=True)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [row]}), flush=True)

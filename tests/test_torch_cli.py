@@ -12,6 +12,7 @@ CPU.
 - the flags and verbs whose machinery is not ported raise naming their
   ROADMAP.md item, and ``run`` without ``--device`` takes the card (so
   it fails on a machine without one instead of falling back);
+- ``run``'s ``--chaos_*`` flags are accepted and reach ``_chaos_wrap``;
 - three port node processes (``TestnetRunner(device="cpu")``) with dummy
   apps commit a few dozen transactions submitted over JSON-RPC, every
   app's messages.txt holding each once, in one order.
@@ -158,10 +159,6 @@ NOT_PORTED = [
     (["--fork_caps", "4,4,4"], "item 7"),
     (["--engine", "wide"], "item 8"),
     (["--wide_caps", "4,4,4"], "item 8"),
-    (["--chaos_plan", "plan.json"], "item 6"),
-    (["--chaos_seed", "3"], "item 6"),
-    (["--chaos_epoch", "1.5"], "item 6"),
-    (["--chaos_addrs", "a.json"], "item 6"),
 ]
 
 
@@ -174,10 +171,45 @@ def test_unported_run_flags_raise_naming_their_item(flags, item):
         in msg
 
 
+class _Wrapped(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flags,attr,value", [
+    ([], "chaos_plan", None),
+    (["--chaos_seed", "3"], "chaos_seed", 3),
+    (["--chaos_epoch", "1.5"], "chaos_epoch", 1.5),
+    (["--chaos_addrs", "a.json"], "chaos_addrs", "a.json"),
+])
+def test_chaos_run_flags_reach_chaos_wrap(tmp_path, monkeypatch, flags,
+                                          attr, value):
+    """The flags the port refused before the chaos plane was ported: a
+    node with ``--chaos_plan`` wraps its TCP transport in
+    ``_chaos_wrap``, which sees every ``--chaos_*`` value."""
+    tn.build_conf(str(tmp_path), 2)
+    plan = tmp_path / "plan.json"
+    plan.write_text("{}")
+    seen = {}
+
+    def wrap(transport, args, key, peers):
+        seen.update(args=args, addr=transport.local_addr(), key=key,
+                    peers=peers)
+        raise _Wrapped
+
+    monkeypatch.setattr(pcli, "_chaos_wrap", wrap)
+    with pytest.raises(_Wrapped):
+        pcli.main(["run", "--datadir", str(tmp_path / "node0"),
+                   "--no_client", "--node_addr", "127.0.0.1:0",
+                   "--device", "cpu", "--chaos_plan", str(plan)] + flags)
+    assert getattr(seen["args"], attr) == (str(plan) if value is None
+                                           else value)
+    assert len(seen["peers"]) == 2 and seen["addr"].startswith("127.0.0.1:")
+
+
 @pytest.mark.parametrize("argv,item", [
     (["fleet", "watch", "--hosts", "h"], "item 5e"),
     (["lint", "--json", "x"], "item 5e"),
-    (["chaos", "run", "flaky-link"], "item 6"),
+    (["chaos", "run", "fork-attack"], "item 7"),
     (["testnet", "health"], "item 5e"),
     (["testnet", "trace", "ab"], "item 5e"),
 ])

@@ -3,9 +3,10 @@ package nor msgpack nor cryptography (the card's machine has none), and
 runs a consensus step, a live stream, the engine, a churn flow, a
 checkpoint save and load, a 3-node fleet of its ``Node`` (gossip to
 committed transactions, then a restart from the write-ahead log), its
-cli's ``keygen`` and ``sim --device cpu`` as ``python -m`` runs them, and
-a round trip between two of its TCP transports, with all four
-blocked."""
+cli's ``keygen`` and ``sim --device cpu`` as ``python -m`` runs them, a
+round trip between two of its TCP transports, and a chaos scenario
+through its runner (the disk-rot mini: crash, checkpoint and WAL rot,
+recovery), with all four blocked."""
 
 import ast
 import os
@@ -35,7 +36,10 @@ def test_port_sources_import_no_jax():
     assert {"cli.py", "testnet.py", "net/codec.py", "net/tcp_transport.py",
             "proxy/admission.py", "proxy/jsonrpc.py", "proxy/socket_app.py",
             "proxy/socket_babble.py", "proxy/dummy.py",
-            "service/service.py"} <= scanned
+            "service/service.py", "chaos/__init__.py", "chaos/plan.py",
+            "chaos/injector.py", "chaos/transport.py", "chaos/invariants.py",
+            "chaos/disk.py", "chaos/forge.py", "chaos/scenarios.py",
+            "chaos/scenario.py"} <= scanned
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -190,6 +194,18 @@ async def round_trip():
 
 
 asyncio.run(round_trip())
+
+# the chaos plane: a scenario through the deterministic runner, with
+# seeded disk rot on the restarted node's checkpoint and WAL
+import logging
+from babble_tpu_torch.chaos import Scenario, run_scenario
+from chip_smoke import CHAOS_EXPECT, CHAOS_MINI_DISKROT, chaos_summary
+
+logging.disable(logging.WARNING)
+r = run_scenario(Scenario.from_dict({**CHAOS_MINI_DISKROT, "seed": 1}),
+                 seed=1, device="cpu")
+assert r.fault_counts["checkpoint_corrupt"] == 1, r.fault_counts
+assert chaos_summary(r) == CHAOS_EXPECT["mini-disk-rot"][1], chaos_summary(r)
 blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
            and sys.modules[m] is not None]
 assert not blocked, blocked

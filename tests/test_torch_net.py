@@ -491,6 +491,34 @@ def test_timeout_and_unreachable_texts_are_the_jax_packages():
     asyncio.run(asyncio.wait_for(go(), 60))
 
 
+def test_a_dial_timeout_reads_as_a_timeout(monkeypatch):
+    """A dial that outlives the transport's timeout is a timeout, which
+    the testnet's log check counts for any peer.  The JAX transport's
+    dial-timeout clause comes after its OSError clause, and
+    asyncio.TimeoutError is an OSError, so JAX reports it as an
+    unreachable peer with an empty reason."""
+
+    async def never(*_args, **_kw):
+        await asyncio.sleep(3600)
+
+    async def go():
+        texts = {}
+        for pkg in ("jax", "torch"):
+            a = await TCP[pkg].new_tcp_transport("127.0.0.1:0", timeout=0.1)
+            req = PKG[pkg][0].SyncRequest(from_addr=a.local_addr(), known={})
+            with monkeypatch.context() as m:
+                m.setattr(asyncio, "open_connection", never)
+                with pytest.raises(ERRORS[pkg]) as err:
+                    await a.sync("127.0.0.1:9", req)
+            texts[pkg] = str(err.value)
+            await a.close()
+        return texts
+
+    texts = asyncio.run(asyncio.wait_for(go(), 30))
+    assert texts["torch"] == "dial to 127.0.0.1:9 timed out"
+    assert texts["jax"] == "sync to 127.0.0.1:9 failed: "
+
+
 def test_advertise_validation_is_the_jax_packages():
     for addr in ("0.0.0.0:1337", ":1337"):
         with pytest.raises(ValueError) as pe:
