@@ -10,7 +10,10 @@ last-ancestor walk) rewritten by hand in CUDA for Hopper
 (``csrc/la_walk.cu``), and the consensus engine around them
 (``consensus/engine.py TorchHashgraph``: host DAG, batching, the
 latency/throughput dispatch, compaction, commit order and digest, and
-the membership plane's join/leave epoch transitions), with its
+the membership plane's join/leave epoch transitions), the fork-aware
+byzantine pair (``ops/forks.py`` with its hand-written strongly-see
+compare-count ``csrc/fork_ss.cu``, ``consensus/fork_engine.py
+ForkHashgraph`` and the ``ForkOracle``), with its
 checkpoints and fast-forward snapshots (``store/``: the JAX package's
 FORMAT v6 bytes, restorable across the packages) and the crypto and
 msgpack they stand on (``crypto/``, ``codec.py``), and the node runtime
@@ -42,15 +45,19 @@ Entry points take an explicit ``device`` ("cuda" by default); pass
 """
 
 from .consensus.engine import TorchHashgraph
+from .consensus.fork_engine import ForkHashgraph
 from .ops.ingest import EventBatch
 from .ops.state import (
     DagConfig, DagState, assert_consensus_parity, init_state,
     state_from_numpy, state_to_numpy,
 )
 from .sim.arrays import (
-    ArrayDag, batch_from_arrays, events_from_arrays, random_gossip_arrays,
+    ArrayDag, batch_from_arrays, events_from_arrays, random_byzantine_fork_batch,
+    random_gossip_arrays,
 )
-from .sim.generator import random_churn_dag, random_gossip_dag
+from .sim.generator import (
+    random_byzantine_dag, random_churn_dag, random_gossip_dag,
+)
 from .sim.live import live_stream
 from .step import consensus_step
 from .store.checkpoint import (
@@ -58,10 +65,12 @@ from .store.checkpoint import (
 )
 
 __all__ = [
-    "ArrayDag", "DagConfig", "DagState", "EventBatch", "TorchHashgraph",
+    "ArrayDag", "DagConfig", "DagState", "EventBatch", "ForkHashgraph",
+    "TorchHashgraph",
     "assert_consensus_parity", "batch_from_arrays", "consensus_step",
     "events_from_arrays", "init_state", "live_stream", "load_checkpoint",
-    "load_snapshot", "random_churn_dag", "random_gossip_arrays",
+    "load_snapshot", "random_byzantine_dag", "random_byzantine_fork_batch",
+    "random_churn_dag", "random_gossip_arrays",
     "random_gossip_dag", "save_checkpoint", "snapshot_bytes",
     "state_from_numpy", "state_to_numpy",
 ]

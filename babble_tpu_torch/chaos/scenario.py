@@ -25,12 +25,9 @@ fleet-wide /Stats + /metrics sweep (``babble_chaos_faults_total``
 distinguishes injected faults from organic ones).  Wall-clock fleets
 are not bit-reproducible — the *fault schedule* still is, per link.
 
-Every node's engine lives on ``device``, the card by default; the fused
-engine is the port's only kind, so a scenario that asks for the
-byzantine engine raises ``NotImplementedError`` naming its ROADMAP.md
-item instead of running anything, and the JAX runner's branches for
-that engine (the keep-the-engine crash model, fork injection into
-fork-aware engines) are not here.
+Every node's engine lives on ``device``, the card by default: the fused
+engine, or the fork-aware ``ForkHashgraph`` for a scenario with
+``"engine": "byzantine"`` (``fork-attack``).
 """
 
 from __future__ import annotations
@@ -49,7 +46,6 @@ from ..crypto.keys import P256_ORDER, KeyPair, key_from_scalar, sha256
 from ..net.inmem_transport import InmemNetwork
 from ..net.peers import Peer
 from ..node.config import Config
-from ..node.core import NOT_PORTED_BYZANTINE
 from ..node.node import Node
 from ..proxy.inmem import InmemAppProxy
 from .disk import apply_disk_faults
@@ -69,16 +65,6 @@ CONSENSUS_EVERY = 6
 #: change the run's result; Config.test_config's 0.2 s is within reach
 #: of both
 RPC_TIMEOUT_S = 30.0
-
-
-def refuse_byzantine(scenario: Scenario) -> None:
-    """Raise ``NotImplementedError`` for a scenario that runs the
-    byzantine engine, which the port does not have yet."""
-    if scenario.engine == "byzantine":
-        raise NotImplementedError(
-            f"scenario {scenario.name!r} runs the byzantine engine: "
-            f"{NOT_PORTED_BYZANTINE}"
-        )
 
 
 def deterministic_keys(seed: int, n: int) -> List[KeyPair]:
@@ -227,6 +213,7 @@ class _Handle:
     node: Optional[Node] = None
     proxy: Optional[InmemAppProxy] = None
     alive: bool = True
+    saved_engine: object = None
     engine_at_restart: object = None
     restarted: bool = False
 
@@ -236,7 +223,6 @@ class ScenarioRunner:
 
     def __init__(self, scenario: Scenario, seed: Optional[int] = None,
                  _twin: bool = False, device: str = "cuda"):
-        refuse_byzantine(scenario)
         #: torch device of every node's engine (Config.device)
         self.device = device
         #: this run IS a drift-free twin (skew_robust_order): collect
@@ -352,8 +338,11 @@ class ScenarioRunner:
         # probe -> gossip/fast-forward).  This is what lets crash
         # scenarios run honest-mode: recovery is seq-exact, so a
         # restarted node never re-mints a published index and no peer
-        # ever reads it as an equivocator.
-        durable = bool(sc.plan.crashes or sc.plan.disk)
+        # ever reads it as an equivocator.  (Byzantine-engine crashes
+        # keep the keep-the-engine model: fork-aware restarts are
+        # exercised by the live tier.)
+        durable = (sc.engine == "fused"
+                   and bool(sc.plan.crashes or sc.plan.disk))
         durable_root = (
             tempfile.mkdtemp(prefix="babble-chaos-durable-")
             if durable else None
@@ -365,6 +354,7 @@ class ScenarioRunner:
         def make_conf(i: int) -> Config:
             conf = Config.test_config(heartbeat=1.0, device=self.device)
             conf.tcp_timeout = RPC_TIMEOUT_S
+            conf.byzantine = (sc.engine == "byzantine")
             conf.cache_size = sc.cache_size
             conf.seq_window = sc.seq_window
             if sc.inactive_rounds is not None:
@@ -494,38 +484,48 @@ class ScenarioRunner:
                             result.flight_dumps.get(node_idx, [])
                             + h.node.flight.dump()
                         )
-                        # power-cut semantics: drop the file handles
-                        # with NO clean-shutdown receipt and discard the
-                        # live engine — whatever the WAL (and any
-                        # periodic checkpoint) captured is all the
-                        # restart gets (a crash makes the run durable)
-                        h.node.core.wal.abort()
+                        if durable:
+                            # power-cut semantics: drop the file handles
+                            # with NO clean-shutdown receipt and discard
+                            # the live engine — whatever the WAL (and
+                            # any periodic checkpoint) captured is all
+                            # the restart gets
+                            h.saved_engine = None
+                            h.node.core.wal.abort()
+                        else:
+                            h.saved_engine = h.node.core.hg
                         await h.node.shutdown()
                         h.alive = False
                         injector.record("crash", node_idx, node_idx)
                     elif action == "restart" and not h.alive:
-                        # the real recovery ladder: seeded disk rot
-                        # first (that is when fsync lies surface), then
-                        # checkpoint -> WAL replay -> probe
-                        if sc.plan.disk is not None:
-                            # off-loop: the structure-relative draws
-                            # decode checkpoint meta
-                            def rot(idx=node_idx):
-                                apply_disk_faults(
-                                    injector, sc.plan.disk, idx,
-                                    ckpt_dir(idx),
-                                    os.path.join(durable_root,
-                                                 f"node{idx}", "wal"),
-                                )
-                            await asyncio.get_running_loop() \
-                                .run_in_executor(None, rot)
-                        from ..store import load_checkpoint_tolerant
+                        if durable:
+                            # the real recovery ladder: seeded disk rot
+                            # first (that is when fsync lies surface),
+                            # then checkpoint -> WAL replay -> probe
+                            if sc.plan.disk is not None:
+                                # off-loop: the structure-relative
+                                # draws decode checkpoint meta
+                                def rot(idx=node_idx):
+                                    apply_disk_faults(
+                                        injector, sc.plan.disk, idx,
+                                        ckpt_dir(idx),
+                                        os.path.join(durable_root,
+                                                     f"node{idx}", "wal"),
+                                    )
+                                await asyncio.get_running_loop() \
+                                    .run_in_executor(None, rot)
+                            from ..store import load_checkpoint_tolerant
 
-                        engine, _err = load_checkpoint_tolerant(
-                            ckpt_dir(node_idx), device=self.device
-                        ) if os.path.isdir(ckpt_dir(node_idx)) \
-                            else (None, None)
-                        boot(h, engine=engine)
+                            engine, _err = load_checkpoint_tolerant(
+                                ckpt_dir(node_idx), device=self.device
+                            ) if os.path.isdir(ckpt_dir(node_idx)) \
+                                else (None, None)
+                            boot(h, engine=engine)
+                        else:
+                            # byzantine crashes restart from the engine
+                            # held at crash time (the fork-aware
+                            # checkpoint-restored-process model)
+                            boot(h, engine=h.saved_engine)
                         h.engine_at_restart = h.node.core.hg
                         h.restarted = True
                         result.restarted.add(node_idx)
@@ -769,9 +769,13 @@ class ScenarioRunner:
         core = h.node.core
         cid = byz.node
         async with h.node.core_lock:
-            chain = core.hg.dag.chains[cid]
-            base = (core.hg.dag.events[chain[chain.start]]
-                    if len(chain) else None)
+            if core.byzantine:
+                slots = core.hg.dag.cr_events[cid]
+                base = core.hg.dag.events[slots[0]] if slots else None
+            else:
+                chain = core.hg.dag.chains[cid]
+                base = (core.hg.dag.events[chain[chain.start]]
+                        if len(chain) else None)
         if base is None:
             return {"injected": False, "reason": "no base event"}
 
@@ -783,9 +787,12 @@ class ScenarioRunner:
             dag = target_core.hg.dag
             if base.hex() not in dag.slot_of:
                 return False
+            if target_core.byzantine:
+                slots = dag.cr_events[cid]
+            else:
+                slots = list(dag.chains[cid])
             return any(
-                dag.events[s].index == base.index + 1
-                for s in dag.chains[cid]
+                dag.events[s].index == base.index + 1 for s in slots
             )
 
         ready = []
@@ -823,8 +830,7 @@ def run_scenario(scenario: Scenario,
                  seed: Optional[int] = None,
                  device: str = "cuda") -> ScenarioResult:
     """One deterministic in-memory run on ``device``; result carries the
-    invariant report (``result.report.ok``).  A byzantine scenario
-    raises ``NotImplementedError``."""
+    invariant report (``result.report.ok``)."""
     return ScenarioRunner(scenario, seed=seed, device=device).run()
 
 
@@ -898,7 +904,6 @@ def run_live(
     belongs to the deterministic runner.  Every node runs ``cli run
     --device device``; ``ports`` (a ``testnet.PortLayout``) defaults to
     the testnet's fixed layout."""
-    refuse_byzantine(scenario)
     import threading
     import time
 
@@ -945,6 +950,7 @@ def run_live(
         # reads the restart as an equivocation (the old workaround —
         # fork-aware engines + tight checkpoints tolerating re-minted
         # indexes — is gone)
+        byzantine=(scenario.engine == "byzantine"),
         checkpoints=bool(scenario.plan.crashes),
         wal=bool(scenario.plan.crashes or scenario.plan.disk),
         device=device,

@@ -16,10 +16,9 @@
 The flags and defaults are the JAX package's, plus ``--device`` (the
 card by default; ``--device cpu`` runs every stage in plain torch on the
 CPU).  The port has no XLA cache, so no ``--jax_cache``.  Flags that ask
-for machinery the port does not have yet (the byzantine and wide
-engines) raise ``SystemExit`` naming its ROADMAP.md item instead of
-being ignored, and so do the verbs still to port and a chaos scenario
-that runs the byzantine engine.
+for machinery the port does not have yet (the wide engine) raise
+``SystemExit`` naming its ROADMAP.md item instead of being ignored, and
+so do the verbs still to port.
 """
 
 from __future__ import annotations
@@ -30,7 +29,8 @@ import json
 import sys
 import time
 
-from .node.core import NOT_PORTED_BYZANTINE, NOT_PORTED_WIDE
+from .node.core import NOT_PORTED_WIDE
+from .ops.forks import FORK_SS_MAX_K
 
 NOT_PORTED_FLEET = (
     "{what} is not ported yet (ROADMAP.md Queue 1, item 5e: the fleet "
@@ -52,9 +52,6 @@ NOT_PORTED_VERBS = {
 #: (args attribute, default, flag, reason) of every ``run`` flag whose
 #: machinery the port lacks: any value but the default raises
 NOT_PORTED_FLAGS = (
-    ("byzantine", False, "--byzantine", NOT_PORTED_BYZANTINE),
-    ("fork_k", 2, "--fork_k", NOT_PORTED_BYZANTINE),
-    ("fork_caps", "", "--fork_caps", NOT_PORTED_BYZANTINE),
     ("engine", "fused", "--engine", NOT_PORTED_WIDE),
     ("wide_caps", "", "--wide_caps", NOT_PORTED_WIDE),
 )
@@ -67,6 +64,35 @@ def refuse_not_ported(args) -> None:
         value = getattr(args, attr)
         if value != default:
             raise SystemExit(f"{flag} {value}: {reason}")
+
+
+def check_fork_k(args) -> None:
+    """Raise ``SystemExit`` for a ``--fork_k`` the card's fork_ss kernel
+    is not built for (the CPU's plain twin takes any k)."""
+    if args.byzantine and args.device.startswith("cuda") \
+            and args.fork_k > FORK_SS_MAX_K:
+        raise SystemExit(
+            f"--fork_k {args.fork_k}: the fork_ss kernel on {args.device} "
+            f"is built for k in [1, {FORK_SS_MAX_K}]")
+
+
+def _parse_fork_caps(spec: str, flag: str = "--fork_caps"):
+    """'e,s,r' -> (e, s, r), failing at the flag instead of as a bare
+    IndexError inside the consensus loop."""
+    if not spec:
+        return None
+    parts = spec.split(",")
+    if len(parts) != 3:
+        raise SystemExit(
+            f"{flag} wants exactly 'e,s,r' (got {spec!r})"
+        )
+    try:
+        caps = tuple(int(x) for x in parts)
+    except ValueError:
+        raise SystemExit(f"{flag} values must be integers: {spec!r}")
+    if any(v <= 0 for v in caps):
+        raise SystemExit(f"{flag} values must be positive: {spec!r}")
+    return caps
 
 
 def cmd_keygen(args) -> int:
@@ -149,10 +175,27 @@ async def _run_node(args) -> int:
                 file=sys.stderr,
             )
     if engine is not None:
-        # the fused engine is the port's only kind (engine_mode raises
-        # for any other), and --engine/--byzantine were refused above
+        from .store.checkpoint import engine_mode
+
+        # --engine wide was refused above, and engine_mode raises for
+        # any kind the port does not have
+        mode = engine_mode(engine)
+        want = "byzantine" if args.byzantine else args.engine
+        if mode != want:
+            raise SystemExit(
+                f"checkpoint {ckpt_dir} engine kind '{mode}' does not "
+                f"match the configured engine '{want}'"
+            )
+        if mode == "byzantine":
+            caps = _parse_fork_caps(args.fork_caps)
+            if caps:
+                # the checkpoint carries no capacity hints: re-apply the
+                # pre-sizing or every resume grows its capacities anew
+                engine.pre_size(caps)
+        n_ev = (len(engine.dag.events) if mode == "byzantine"
+                else engine.dag.n_events)
         print(f"resumed from checkpoint {ckpt_dir}: "
-              f"{engine.dag.n_events} events, "
+              f"{n_ev} events, "
               f"{engine.consensus_events_count()} in consensus order")
 
     conf = Config(
@@ -178,6 +221,9 @@ async def _run_node(args) -> int:
         ff_verify=not args.no_ff_verify,
         anchor_interval=args.anchor_interval,
         bootstrap_peers=bootstrap_peers,
+        byzantine=args.byzantine,
+        fork_k=args.fork_k,
+        fork_caps=_parse_fork_caps(args.fork_caps),
         wal_dir=args.wal_dir,
         wal_fsync=args.wal_fsync,
         kernel_class=args.kernel_class,
@@ -353,6 +399,7 @@ async def _checkpoint_loop(node, ckpt_dir: str, interval: float) -> None:
 
 def cmd_run(args) -> int:
     refuse_not_ported(args)
+    check_fork_k(args)
     try:
         return asyncio.run(_run_node(args))
     except KeyboardInterrupt:
@@ -554,9 +601,6 @@ def cmd_chaos(args) -> int:
             overrides["nodes"] = args.nodes
         if overrides:
             sc = Scenario.from_dict({**sc.to_dict(), **overrides})
-        if sc.engine == "byzantine":
-            raise SystemExit(
-                f"chaos run {sc.name}: {NOT_PORTED_BYZANTINE}")
         if args.live:
             report = run_live(sc, args.dir, device=args.device)
             print(json.dumps(report, indent=1))
@@ -642,14 +686,14 @@ def build_parser() -> argparse.ArgumentParser:
     rn.add_argument("--consensus_interval", type=int, default=0,
                     help="ms between consensus pipeline runs (0 = every sync)")
     rn.add_argument("--byzantine", action="store_true",
-                    help="fork-aware live mode (not ported yet: ROADMAP "
-                         "item 7; raises)")
+                    help="fork-aware live mode: accept + detect "
+                         "equivocations instead of rejecting them")
     rn.add_argument("--fork_k", type=int, default=2,
-                    help="branch slots per creator (byzantine mode; not "
-                         "ported yet: ROADMAP item 7)")
+                    help="branch slots per creator (fork budget K-1)")
     rn.add_argument("--fork_caps", default="",
                     help="pre-sized byzantine pipeline capacities "
-                         "'e,s,r' (not ported yet: ROADMAP item 7)")
+                         "'e,s,r' (one pipeline shape at boot instead of "
+                         "demand-driven growth)")
     rn.add_argument("--engine", default="fused",
                     choices=("fused", "wide"),
                     help="honest-mode engine: fused [E,N] coordinate "

@@ -7,10 +7,10 @@ self-event whose parents are (own head, peer head) carrying the pooled
 transactions.
 
 The port's copy of the JAX package's ``node/core.py`` over the fused
-engine, which it builds on ``device``.  The byzantine (fork-aware) and
-wide engines are not ported yet: asking for either raises
-``NotImplementedError`` naming its ROADMAP.md item, and an injected
-engine must be a ``TorchHashgraph``.
+engine or, with ``byzantine``, the fork-aware ``ForkHashgraph``; it
+builds either on ``device``.  The wide engine is not ported yet: asking
+for it raises ``NotImplementedError`` naming its ROADMAP.md item, and an
+injected engine must be a ``TorchHashgraph`` or a ``ForkHashgraph``.
 """
 
 from __future__ import annotations
@@ -20,17 +20,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from ..common import TooLateError
 from ..consensus.engine import TorchHashgraph
+from ..consensus.fork_engine import ForkHashgraph
 from ..core.event import Event, WireEvent, new_event
 from ..crypto.keys import KeyPair
 from ..obs import Registry
+from ..ops.forks import ParentUnknownError
 from ..quorum import sync_quorum
 from ..store.checkpoint import engine_mode
 from ..wal import WriteAheadLog
 
-NOT_PORTED_BYZANTINE = (
-    "byzantine mode (the fork-aware ForkHashgraph) is not ported yet "
-    "(ROADMAP.md Queue 1, item 7: the byzantine pair)"
-)
 NOT_PORTED_WIDE = (
     "the wide engine (WideHashgraph) is not ported yet (ROADMAP.md "
     "Queue 1, item 8: the wide-N engine)"
@@ -131,17 +129,31 @@ class Core:
             # a later epoch legitimately differs from the boot peer
             # list (membership plane), so the engine's epoch ledger
             # wins and observer status is recomputed against it.
-            # engine_mode names the kind without importing an engine
-            # class: it raises for anything but the fused engine
-            engine_mode(engine)
+            # engine_mode raises for a kind the port does not have
             self.hg = engine
-            byzantine = False
+            byzantine = engine_mode(engine) == "byzantine"
             participants = engine.participants
             self.participants = participants
             self._observer = self.pub_hex not in participants
             self.id = participants.get(self.pub_hex, -1)
         elif byzantine:
-            raise NotImplementedError(NOT_PORTED_BYZANTINE)
+            # fork-aware live mode: equivocations are accepted, detected
+            # and discounted instead of rejected (ops/forks.py); gossip
+            # ships the self-contained FullWireEvent form because the
+            # compact (creatorID, index) references are ambiguous under
+            # forks.  Batch execution per consensus tick over a rolling
+            # window (fork_engine.maybe_compact) keeps per-tick cost
+            # bounded forever.
+            self.hg = ForkHashgraph(
+                participants, k=fork_k,
+                commit_callback=commit_callback,
+                verify_signatures=True,
+                auto_compact=bool(cache_size),
+                seq_window=min(seq_window or cache_size or 256, 256),
+                compact_min=max((cache_size or 256) // 4, 32),
+                initial_caps=fork_caps,
+                device=device,
+            )
         elif wide:
             raise NotImplementedError(NOT_PORTED_WIDE)
         else:
@@ -170,16 +182,26 @@ class Core:
             )
         self.byzantine = byzantine
         self._apply_live_engine_policy()
-        # tolerated insert failures (unconvertible wire events, merge
-        # skips): counted, not raised — surfaced for stats/tests
+        # tolerated insert failures (byzantine-mode per-event insert
+        # failures, unconvertible wire events, merge skips): counted,
+        # not raised — surfaced for stats/tests
         self.insert_failures = 0
         self.last_insert_error: Optional[str] = None
         #: merge mints skipped because the sync partner's head was
         #: minted by a creator retired in the current epoch
         self.retired_merge_skips = 0
-        # per-creator resync backoff of the byzantine mode's
-        # self-stabilizing gossip; always empty until that mode is
-        # ported (the node's gauge and too_late path read it)
+        # self-stabilizing gossip: count-skip
+        # diffs can hide the symmetric difference under equivocation.
+        # The fork engine's tip exchange makes a hidden divergence
+        # surface as a parent-not-known failure on an event of the
+        # DIVERGED creator; each such failure doubles that creator's
+        # backoff, and known() under-advertises that creator's count by
+        # it — so diffs reach ever deeper into its chain until the
+        # fork's shared prefix arrives and the branch materializes
+        # (duplicates are dropped by hash).  The backoff is per-creator
+        # and resets only when a NEW event of that creator inserts
+        # (progress), so interleaved healthy syncs cannot wipe it:
+        # divergence depth d heals in ~log2(d) failing syncs total.
         self._creator_backoff: Dict[int, int] = {}
         # Durability plane (wal/): the write-ahead log is replayed on
         # top of whatever engine we booted with (fresh or checkpoint-
@@ -217,7 +239,15 @@ class Core:
         self.seq: int = -1
         # A resumed engine (store.load_checkpoint) already holds our chain —
         # pick up where the checkpoint left off.  Observers have no chain.
-        if not self._observer:
+        if self._observer:
+            pass
+        elif byzantine:
+            own = self.hg.dag.cr_events[participants[self.pub_hex]]
+            if own:
+                head_ev = self.hg.dag.events[own[-1]]
+                self.head = head_ev.hex()
+                self.seq = head_ev.index
+        else:
             chain = self.hg.dag.chains[participants[self.pub_hex]]
             if chain:
                 head_ev = self.hg.dag.events[chain[-1]]
@@ -278,6 +308,11 @@ class Core:
                 "merge mints skipped because the sync partner's head "
                 "was minted by a retired creator",
             ).set_function(lambda: self.retired_merge_skips)
+            if byzantine:
+                registry.gauge(
+                    "babble_forked_creators",
+                    "creators with a detected live equivocation",
+                ).set_function(lambda: _snap().get("forked_creators", 0))
 
     # ------------------------------------------------------------------
     # durability (wal/): recovery, the mint floor, the seq probe
@@ -428,7 +463,10 @@ class Core:
         class pin.  Both are per-call static arguments on the compiled
         entries, so flipping the attributes is safe at any flush
         boundary.  (The fused engine keeps no instruments of its own, so
-        an adopted engine needs no registry rebind.)"""
+        an adopted engine needs no registry rebind; the fork engine has
+        none of these knobs.)"""
+        if not isinstance(self.hg, TorchHashgraph):
+            return
         self.hg.finality_gate = True
         self.hg.kernel_class = self.kernel_class
         self.hg.phase_probe = self.phase_probe
@@ -440,7 +478,7 @@ class Core:
         if self.hg.cfg.packed != self.packed_votes:
             self.hg.cfg = self.hg.cfg._replace(packed=self.packed_votes)
 
-    def bootstrap(self, engine: TorchHashgraph) -> None:
+    def bootstrap(self, engine) -> None:
         """Replace the consensus engine with a fast-forward snapshot (the
         catch-up path, node.py): adopt the peer's windowed state and pick
         our own chain back up from whatever the snapshot knows of us.
@@ -474,6 +512,10 @@ class Core:
                 getattr(engine, "flush_fallbacks", 0)
                 + getattr(self.hg, "flush_fallbacks", 0)
             )
+        if self.byzantine:
+            self._bootstrap_fork(engine)
+            self._note_ff_adopted()
+            return
         # Membership plane: the adopted engine's epoch ledger is
         # authoritative (validate_ff_snapshot verified its membership
         # chain against our trusted set before we got here) — rebind
@@ -619,6 +661,71 @@ class Core:
             self.wal.checkpointed(self.seq, self.head)
         self._min_next_seq = max(self._min_next_seq, self.seq + 1)
 
+    def _bootstrap_fork(self, engine) -> None:
+        """Byzantine-mode bootstrap: adopt a
+        fork-aware snapshot engine.  Beyond the honest checks, a
+        snapshot that records an equivocation by US is refused outright:
+        our key never forks, so either the snapshot is corrupt or our
+        key is compromised — and replaying our local tail onto a
+        diverged view of our own chain would MINT a fork under our
+        signature, permanently poisoning our gossip."""
+        cid = self.participants[self.pub_hex]
+        dag = engine.dag
+        if any(dag.br_used[c]
+               for c in range(cid * dag.k + 1, (cid + 1) * dag.k)):
+            raise ValueError(
+                "snapshot records an equivocation by our own key; "
+                "refusing bootstrap"
+            )
+        own = dag.cr_events[cid]
+        if not own and dag.cr_evicted[cid] > 0:
+            raise ValueError(
+                "snapshot window holds none of our own chain tail"
+            )
+        snap_seq = max(
+            (dag.events[s].index for s in own), default=-1
+        )
+        if self.seq > snap_seq:
+            old = self.hg.dag
+            by_idx = {
+                old.events[s].index: old.events[s]
+                for s in old.cr_events[cid]
+            }
+            tail = []
+            for q in range(snap_seq + 1, self.seq + 1):
+                ev = by_idx.get(q)
+                if ev is None:
+                    raise ValueError(
+                        f"own-chain tail seq {q} locally evicted; cannot "
+                        "reconcile snapshot behind our published chain"
+                    )
+                tail.append(ev)
+            saved = [(ev, ev.topological_index) for ev in tail]
+            try:
+                for ev in tail:
+                    engine.insert_event(ev)
+            except Exception as e:
+                for ev, ti in saved:
+                    ev.topological_index = ti
+                raise ValueError(
+                    f"snapshot is behind our published chain (local seq "
+                    f"{self.seq} > snapshot {snap_seq}) and the tail is "
+                    f"not insertable into it: {e}"
+                ) from e
+        own = dag.cr_events[cid]
+        if own:
+            tip = max(own, key=lambda s: dag.events[s].index)
+            self.hg = engine
+            self.head = dag.events[tip].hex()
+            self.seq = dag.events[tip].index
+        else:
+            # the snapshot knows nothing of us: mint a fresh root
+            self.hg = engine
+            self.head = ""
+            self.seq = -1
+            self.init()
+        self._apply_live_engine_policy()
+
     def _replay_own_tail(
         self, engine: TorchHashgraph, cid: int, snap_seq: int
     ) -> None:
@@ -681,23 +788,46 @@ class Core:
     # gossip protocol
 
     def known(self) -> Dict[int, int]:
-        """The vector clock this core advertises to sync partners."""
-        return self.hg.known()
+        """The vector clock this core advertises to sync partners.  In
+        byzantine mode, creators with an active gossip backoff (see
+        __init__) are under-advertised so hidden set divergences
+        eventually resync."""
+        k = self.hg.known()
+        if self.byzantine and self._creator_backoff:
+            # Cap the under-advertisement at our own retained window
+            # depth for that creator: resync
+            # material below our window base is committed on both sides
+            # (participant_events caps its resend there too), and an
+            # advertised count below the PEER's eviction point turns
+            # every sync into TooLate — with no byzantine fast-forward
+            # that wedges the pair permanently, and the backoff could
+            # never reset because no sync ever succeeded.
+            k2 = {}
+            for cid, c in k.items():
+                b = self._creator_backoff.get(cid, 0)
+                if b:
+                    b = min(b, len(self.hg.dag.cr_events[cid]))
+                k2[cid] = max(0, c - b)
+            k = k2
+        return k
+
 
     def reset_gossip_backoff(self) -> None:
         """Drop all per-creator resync backoff.  Called when a sync
-        returns too_late: the fast-forward path takes over from there."""
+        returns too_late: the under-advertised counts fell below the
+        peer's rolling window, so deeper probing can only wedge — the
+        fast-forward path takes over from there."""
         self._creator_backoff.clear()
 
     def diff(self, known: Dict[int, int]) -> List[Event]:
         """Events we know that the peer doesn't, topologically sorted
         (reference core.go:108-132)."""
         out: List[Event] = []
-        dag = self.hg.dag
+        src = self.hg if self.byzantine else self.hg.dag
         for pub, cid in self.participants.items():
             skip = known.get(cid, 0)
-            for hex_id in dag.participant_events(pub, skip):
-                out.append(dag.events[dag.slot_of[hex_id]])
+            for hex_id in src.participant_events(pub, skip):
+                out.append(self.hg.dag.events[self.hg.dag.slot_of[hex_id]])
         out.sort(key=lambda e: e.topological_index)
         return out
 
@@ -715,9 +845,14 @@ class Core:
     ) -> bool:
         """Insert peer events, then create the new head (core.go:134-157).
 
-        Honest mode is strict: an insert error means a protocol
-        violation and the whole sync is rejected (reference
-        core.go:139-146).
+        Byzantine mode inserts per-event instead of all-or-nothing: one
+        bad event (ForkBudgetError when a creator exceeds its fork
+        budget, bad signature, unknown parent) must not drop the
+        remaining valid events from OTHER creators in the same
+        response, or a single spamming equivocator would permanently
+        poison every future sync that includes its events.  Honest mode
+        stays strict — there an insert error means a protocol violation
+        and the whole sync is rejected (reference core.go:139-146).
 
         Signature elision (ingress plane): the batch is scanned for
         contiguous self-parent chains per creator; one upfront ECDSA
@@ -760,20 +895,48 @@ class Core:
         for ev in events:
             if ev.hex() in self.hg.dag.slot_of:
                 continue
-            self.insert_event(ev)
-            self._wal_append(ev)
-            self._adopt_own_event(ev)
-            if self.lineage is not None:
-                self.lineage.note_event(ev.hex(), "insert", index=ev.index)
+            if self.byzantine:
+                cid = self.participants.get(ev.creator)
+                try:
+                    self.insert_event(ev)
+                    self._wal_append(ev)
+                    self._adopt_own_event(ev)
+                    if self.lineage is not None:
+                        self.lineage.note_event(ev.hex(), "insert",
+                                                index=ev.index)
+                    self._creator_backoff.pop(cid, None)  # progress
+                except ValueError as e:   # includes ForkBudgetError
+                    self.insert_failures += 1
+                    self.last_insert_error = str(e)
+                    # only missing-ancestry failures warrant deeper
+                    # resync; malformed events (bad index, foreign
+                    # self-parent, fork budget) must not inflate the
+                    # backoff of a creator that needs no resync (typed,
+                    # not substring-matched)
+                    if isinstance(e, ParentUnknownError) and cid is not None:
+                        self._creator_backoff[cid] = min(
+                            2 * max(self._creator_backoff.get(cid, 0), 1),
+                            1 << 20,
+                        )
+                    continue
+            else:
+                self.insert_event(ev)
+                self._wal_append(ev)
+                self._adopt_own_event(ev)
+                if self.lineage is not None:
+                    self.lineage.note_event(ev.hex(), "insert",
+                                            index=ev.index)
         self._retry_wal_orphans()
-        if other_head and other_head not in self.hg.dag.slot_of:
-            # the peer's head is not resolvable here: a truncated push
-            # frame (multi-frame catch-up) named a head beyond what it
-            # shipped.  Keep everything inserted, but the merge event
-            # cannot name it — later gossip (or the next continuation
-            # frame) retries.  Returning False tells the node NO
-            # self-event carried the payload, so it must re-queue the
-            # pooled transactions.
+        if (other_head not in self.hg.dag.slot_of
+                and (self.byzantine or other_head)):
+            # the peer's head is not resolvable here — byzantine mode:
+            # its parents reference events we don't hold yet; honest
+            # mode: a truncated push frame (multi-frame catch-up) named
+            # a head beyond what it shipped.  Keep everything inserted,
+            # but the merge event cannot name it — later gossip (or the
+            # next continuation frame) retries.  Returning False tells
+            # the node NO self-event carried the payload, so it must
+            # re-queue the pooled transactions.
             self.insert_failures += 1
             self.last_insert_error = "peer head not insertable; merge skipped"
             return False
@@ -845,8 +1008,24 @@ class Core:
         """DivideRounds → DecideFame → FindOrder with per-phase timings
         (reference core.go:179-202).  The fused engine dispatches per
         flush between its latency and throughput compiled surfaces
-        (engine.run_consensus_timed)."""
-        return self.hg.run_consensus_timed()
+        (engine.run_consensus_timed); the fork engine keeps the
+        three-phase protocol."""
+        timed = getattr(self.hg, "run_consensus_timed", None)
+        if timed is not None:
+            return timed()
+        t0 = time.perf_counter()
+        self.hg.divide_rounds()
+        t1 = time.perf_counter()
+        self.hg.decide_fame()
+        t2 = time.perf_counter()
+        new_events = self.hg.find_order()
+        t3 = time.perf_counter()
+        timings = {
+            "divide_rounds_s": t1 - t0,
+            "decide_fame_s": t2 - t1,
+            "find_order_s": t3 - t2,
+        }
+        return new_events, timings
 
     # ------------------------------------------------------------------
     # stats (reference core.go:222-256)

@@ -34,8 +34,9 @@ The ingress plane reworked the live hot path around that loop:
 The port's copy of the JAX package's ``node/node.py``, over the port's
 ``Core`` and ``TorchHashgraph`` on ``Config.device``.  Consensus and sync
 work run in the default executor, as in the JAX package, so several
-nodes of one process may drive the card from worker threads.  Not ported
-yet: the byzantine and wide engines (the ``Core`` raises), and the AOT
+nodes of one process may drive the card from worker threads.  With
+``Config.byzantine`` the ``Core`` runs the fork-aware ``ForkHashgraph``.
+Not ported yet: the wide engine (the ``Core`` raises), and the AOT
 prewarm (``Config.aot_dir`` raises, ROADMAP.md Queue 1, item 10).
 """
 
@@ -1438,7 +1439,10 @@ class Node:
         self, req: FastForwardRequest
     ) -> FastForwardResponse:
         """Serve a catch-up snapshot (no reference counterpart — a peer
-        behind the reference's rolling caches can never rejoin).
+        behind the reference's rolling caches can never rejoin).  In
+        byzantine mode the snapshot ships branch tips + divergence
+        points + detection-relevant seeds, so the rejoining node resumes
+        fork-aware with the same equivocation knowledge we hold.
 
         The response carries our SIGNED state proof (store/proof.py):
         the signature binds the exact snapshot bytes to our committed
@@ -1600,8 +1604,9 @@ class Node:
             )
             if err is not None:
                 raise ValueError(f"fast-forward membership chain: {err}")
-        # engine KIND must match (engine_mode raises for any engine
-        # but the fused one, the only kind the port has)
+        # engine KIND must match: a fused node must not adopt a fork
+        # snapshot or the reverse — byzantine is its own world
+        # (engine_mode raises for the wide kind, not ported)
         if engine_mode(engine) != engine_mode(self.core.hg):
             raise ValueError(
                 f"fast-forward snapshot engine kind "
@@ -1609,6 +1614,22 @@ class Node:
                 f"'{engine_mode(self.core.hg)}'"
             )
         max_e, max_s, max_r = self.ff_max_caps()
+        if self.core.byzantine:
+            # fork engines carry no DagConfig; the bounds are the window
+            # length (checked against max_e pre-materialization too) and
+            # the branch budget, which must match ours or branch-column
+            # layouts diverge across the fleet
+            if len(engine.dag.events) > max_e:
+                raise ValueError(
+                    "fast-forward snapshot window out of bounds: "
+                    f"{len(engine.dag.events)} events"
+                )
+            if engine.dag.k != self.core.hg.dag.k:
+                raise ValueError(
+                    f"fast-forward snapshot fork budget k={engine.dag.k} "
+                    f"differs from local k={self.core.hg.dag.k}"
+                )
+            return
         cap = engine.cfg
         if cap.e_cap > max_e or cap.s_cap > max_s or cap.r_cap > max_r:
             raise ValueError(
@@ -1870,25 +1891,41 @@ class Node:
             # snapshot must not disable our signature checks or replace
             # our memory bounds
             cs = self.conf.cache_size
-            policy = {
-                "verify_signatures": True,
-                "auto_compact": bool(cs),
-                "seq_window": self.conf.seq_window or cs or 256,
-                "consensus_window": 2 * cs if cs else None,
-                # None -> the engine derives its own default from
-                # e_cap; the peer's serialized values must not survive
-                "compact_min": None,
-                "round_margin": 2,
-                # LOCAL inactivity policy, not the peer's: a hostile
-                # round count here could freeze our window exactly
-                # like a hostile round_margin.  "Disabled" is spelled
-                # 0, NOT None — None is _pol's absent-key sentinel
-                # and would silently fall back to the peer's value
-                "inactive_rounds": (
-                    0 if self.conf.inactive_rounds is None
-                    else self.conf.inactive_rounds
-                ),
-            }
+            if self.core.byzantine:
+                # mirror Core.__init__'s byzantine knob derivation so a
+                # fast-forwarded engine behaves like a fresh-boot one
+                policy = {
+                    "verify_signatures": True,
+                    "auto_compact": bool(cs),
+                    "seq_window": min(self.conf.seq_window or cs or 256, 256),
+                    "compact_min": max((cs or 256) // 4, 32),
+                    # explicit: the restore falls back to the PEER's
+                    # serialized value for missing/None entries, and a
+                    # hostile round_margin would freeze our window
+                    "round_margin": 1,
+                }
+            else:
+                policy = {
+                    "verify_signatures": True,
+                    "auto_compact": bool(cs),
+                    "seq_window": self.conf.seq_window or cs or 256,
+                    "consensus_window": 2 * cs if cs else None,
+                    # None -> the engine derives its own default from
+                    # e_cap; the peer's serialized values must not
+                    # survive
+                    "compact_min": None,
+                    "round_margin": 2,
+                    # LOCAL inactivity policy, not the peer's: a hostile
+                    # round count here could freeze our window exactly
+                    # like a hostile round_margin.  "Disabled" is
+                    # spelled 0, NOT None — None is _pol's absent-key
+                    # sentinel and would silently fall back to the
+                    # peer's value
+                    "inactive_rounds": (
+                        0 if self.conf.inactive_rounds is None
+                        else self.conf.inactive_rounds
+                    ),
+                }
             loop = asyncio.get_running_loop()
             # capacity + participant-count bounds are enforced INSIDE
             # load_snapshot on the declared meta and the npy headers,
@@ -1948,7 +1985,16 @@ class Node:
                         "own-chain transactions; re-pooled for re-mint",
                         len(lost),
                     )
-            window_len = engine.dag.n_events - engine.dag.slot_base
+                if (engine_mode(engine) == "byzantine"
+                        and self.conf.fork_caps):
+                    # snapshots carry no capacity hints: re-apply the
+                    # pre-size so that the fast-forwarded engine runs at
+                    # the configured capacities from its first tick
+                    engine.pre_size(self.conf.fork_caps)
+            window_len = (
+                len(engine.dag.events) if self.core.byzantine
+                else engine.dag.n_events - engine.dag.slot_base
+            )
             self.logger.warning(
                 "fast-forwarded from %s: %d events in window, lcr=%s",
                 peer_addr, window_len, engine._lcr_cache,
@@ -2250,7 +2296,7 @@ class Node:
             "evicted_events": str(snap["evicted_events"]),
             "live_window": str(snap["live_window"]),
             "id": str(self.core.id),
-            # byzantine mode only (not ported): live equivocation count
+            # byzantine mode only: live equivocation count
             **({"forked_creators": str(snap["forked_creators"])}
                if "forked_creators" in snap else {}),
             **{k: f"{v:.2f}" for k, v in self.timings.items()},

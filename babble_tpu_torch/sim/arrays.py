@@ -222,3 +222,189 @@ def batch_from_arrays(dag: ArrayDag, bucket=None, device="cuda"):
         k=torch.tensor(k, dtype=torch.int32, device=device),
         sched=torch.from_numpy(sched).to(device),
     )
+
+
+def cap_schedule_width(sched: np.ndarray, max_width: int) -> np.ndarray:
+    """Split wide schedule rows into several rows of <= max_width entries.
+
+    Any partition of a topological level is still a valid schedule (its
+    members are mutually non-ancestral, and splitting preserves order), so
+    this only bounds the per-step working set of the fork pipeline's
+    level scans."""
+    t, w = sched.shape
+    if w <= max_width:
+        return sched
+    parts = -(-w // max_width)
+    out = np.full((t * parts, max_width), -1, np.int32)
+    for r in range(t):
+        row = sched[r][sched[r] >= 0]
+        for p in range(-(-max(len(row), 1) // max_width)):
+            chunk = row[p * max_width : (p + 1) * max_width]
+            out[r * parts + p, : len(chunk)] = chunk
+    keep = (out >= 0).any(axis=1)
+    keep[0] = True
+    return out[keep]
+
+
+def random_byzantine_fork_arrays(
+    n: int,
+    n_events: int,
+    byz_frac: float = 1 / 3,
+    fork_rate: float = 0.05,
+    seed: int = 0,
+    ts_granularity_ns: int = 1_000,
+    base_ts: int = _BASE_TS,
+    sched_width: int = 32,
+    r_cap: int = 0,
+):
+    """``random_byzantine_fork_batch`` on the host: the ``ForkConfig``
+    and the batch's numpy arrays (``ForkBatch`` field names)."""
+    from ..ops.forks import ForkConfig
+    from ..ops.state import INT32_MAX
+    from ..quorum import supermajority
+
+    rng = np.random.default_rng(seed)
+    k = 2
+    b_total = n * k
+    n_byz = min(int(byz_frac * n), n - supermajority(n))
+
+    sp = np.full(n_events, -1, np.int32)
+    op = np.full(n_events, -1, np.int32)
+    ebr = np.zeros(n_events, np.int32)
+    eseq = np.zeros(n_events, np.int32)
+    ecr = np.zeros(n_events, np.int32)
+    ts = np.zeros(n_events, np.int64)
+    mbit = rng.integers(0, 2, n_events).astype(bool)
+    levels = np.zeros(n_events, np.int32)
+
+    heads = np.full(n, -1, np.int32)          # current head slot per node
+    cur_col = np.arange(n, dtype=np.int32) * k
+    cur_idx = np.full(n, -1, np.int32)
+    forked = np.zeros(n, bool)
+    fork_div = np.full(n, -1, np.int32)       # divergence index per creator
+    own_slots: list = [[] for _ in range(n)]  # all own slots in order
+
+    e = 0
+    for i in range(min(n, n_events)):
+        ebr[e] = i * k
+        ecr[e] = i
+        ts[e] = base_ts
+        heads[i] = e
+        cur_idx[i] = 0
+        own_slots[i].append(e)
+        e += 1
+
+    t = 0
+    while e < n_events:
+        t += 1
+        r = int(rng.integers(0, n))
+        s = int(rng.integers(0, n - 1))
+        if s >= r:
+            s += 1
+        raw = t * 1_987_963
+        tstamp = base_ts + (raw // ts_granularity_ns) * ts_granularity_ns
+
+        sp_slot = heads[r]
+        idx = cur_idx[r] + 1
+        col = cur_col[r]
+        if (r < n_byz and not forked[r] and cur_idx[r] >= 1
+                and rng.random() < fork_rate):
+            # equivocate once: branch off a random earlier own event
+            j = int(rng.integers(0, len(own_slots[r]) - 1))
+            sp_slot = own_slots[r][j]
+            idx = eseq[sp_slot] + 1
+            col = r * k + 1
+            forked[r] = True
+            fork_div[r] = idx
+            cur_col[r] = col
+        sp[e] = sp_slot
+        op[e] = heads[s]
+        ebr[e] = col
+        eseq[e] = idx
+        ecr[e] = r
+        ts[e] = tstamp
+        levels[e] = 1 + max(levels[sp_slot], levels[heads[s]])
+        heads[r] = e
+        cur_idx[r] = idx
+        own_slots[r].append(e)
+        e += 1
+
+    max_chain = int(eseq.max()) + 1
+    # fame tensors are [R, B, B]: keep r_cap tight (callers size it to
+    # the expected round count and check the headroom after the run)
+    cfg = ForkConfig(
+        n=n, k=k,
+        e_cap=1 << (n_events - 1).bit_length(),
+        s_cap=1 << max(3, (max_chain + 1 - 1).bit_length()),
+        r_cap=r_cap or 1 << max(
+            3, (int(levels.max()) // 3 + 4 - 1).bit_length()
+        ),
+    )
+    e1, s1 = cfg.e_cap + 1, cfg.s_cap + 1
+
+    ce = np.full((b_total, s1), -1, np.int32)
+    owner = np.zeros((b_total, s1), bool)
+    cnt = np.zeros(b_total, np.int32)
+    cp = np.zeros((b_total, b_total), np.int32)
+    np.fill_diagonal(cp, INT32_MAX)
+    for i in range(n):
+        main, alt = i * k, i * k + 1
+        main_slots = [s_ for s_ in own_slots[i] if ebr[s_] == main]
+        ce[main, : len(main_slots)] = main_slots
+        owner[main, : len(main_slots)] = True
+        cnt[main] = len(main_slots)
+        if forked[i]:
+            d = int(fork_div[i])
+            alt_slots = [s_ for s_ in own_slots[i] if ebr[s_] == alt]
+            chain = main_slots[:d] + alt_slots
+            ce[alt, : len(chain)] = chain
+            owner[alt, d : len(chain)] = True
+            cnt[alt] = len(chain)
+            cp[main, alt] = cp[alt, main] = d
+
+    sched = cap_schedule_width(build_schedule(levels), sched_width)
+
+    def pad1(a, fill):
+        out = np.full(e1, fill, a.dtype)
+        out[:n_events] = a
+        return out
+
+    arrays = dict(
+        sp=pad1(sp, -1), op=pad1(op, -1), ebr=pad1(ebr, b_total),
+        eseq=pad1(eseq, -1), ecr=pad1(ecr, n), ts=pad1(ts, 0),
+        mbit=pad1(mbit, False), sched=sched, cp=cp, ce=ce, cnt=cnt,
+        owner=owner, n_events=np.int32(n_events),
+        rseed=np.full(e1, -1, np.int32), wseed=np.full(e1, -1, np.int8),
+        s_off=np.zeros(b_total, np.int32),
+    )
+    return cfg, arrays
+
+
+def random_byzantine_fork_batch(
+    n: int,
+    n_events: int,
+    byz_frac: float = 1 / 3,
+    fork_rate: float = 0.05,
+    seed: int = 0,
+    ts_granularity_ns: int = 1_000,
+    base_ts: int = _BASE_TS,
+    sched_width: int = 32,
+    r_cap: int = 0,
+    device="cuda",
+):
+    """Zero-object byzantine DAG: gossip arrays where (up to the BFT
+    bound) a third of the creators equivocate exactly once, emitted as
+    the (``ForkConfig``, ``ForkBatch``) the fork pipeline consumes — the
+    1024-node byzantine BASELINE config at bench scale.  Built with numpy
+    on the host, then copied onto ``device``.
+
+    One fork per byzantine creator (branch budget K=2); the same shape as
+    ``sim.generator.random_byzantine_dag`` with forks_per_node=1."""
+    from ..ops.forks import fork_batch_from_numpy
+
+    cfg, arrays = random_byzantine_fork_arrays(
+        n, n_events, byz_frac=byz_frac, fork_rate=fork_rate, seed=seed,
+        ts_granularity_ns=ts_granularity_ns, base_ts=base_ts,
+        sched_width=sched_width, r_cap=r_cap,
+    )
+    return cfg, fork_batch_from_numpy(arrays, device)

@@ -7,7 +7,8 @@ random peer and creates an event whose parents are (own head, peer
 head), from a seed.  Events carry deterministic pseudo-signatures (r, s)
 instead of ECDSA; engines accept them with ``verify_signatures=False``.
 Timestamps tick a configurable granularity so coarse grains give
-median-timestamp ties.
+median-timestamp ties.  ``random_byzantine_dag`` is the copy of its
+byzantine twin: the same shape with equivocating creators.
 
 ``random_churn_dag`` (no JAX twin; a harness like ``sim/live.py``) is the
 same shape over a validator set that changes: real P-256 identities,
@@ -30,6 +31,7 @@ from ..crypto.keys import P256_ORDER, KeyPair, key_from_scalar, sha256
 from ..membership.transition import (
     MEMBERSHIP_MAGIC, MembershipTx, build_membership_tx,
 )
+from ..quorum import supermajority
 
 
 @dataclass
@@ -112,6 +114,80 @@ def random_gossip_dag(
 #: - "start": ``member`` (a joiner) mints its root at ``slot`` and gossips
 #:   from then on; the engine must be at ``epoch`` or later by then;
 #: - "stop": ``member`` mints nothing from ``slot`` on.
+def random_byzantine_dag(
+    n: int,
+    n_events: int,
+    byz_frac: float = 1 / 3,
+    fork_rate: float = 0.05,
+    forks_per_node: int = 1,
+    seed: int = 0,
+    ts_granularity_ns: int = 1_000,
+    base_ts: int = 1_700_000_000_000_000_000,
+) -> GeneratedDag:
+    """Gossip DAG with equivocating creators (the BASELINE byzantine
+    config): the first ``floor(byz_frac * n)`` participants fork with
+    probability ``fork_rate`` per event they create — instead of
+    extending their latest head they extend a random *earlier* own event,
+    producing two events at the same index.  Each forker equivocates at
+    most ``forks_per_node`` times (the engine's per-creator branch budget
+    K-1).  Consumers must run fork-aware see/strongly-see
+    (consensus/byzantine.py, ops/forks.py)."""
+    rng = np.random.default_rng(seed)
+    participants = {("0x" + _fake_pub(i).hex().upper()): i for i in range(n)}
+    pubs = [_fake_pub(i) for i in range(n)]
+    # BFT bound: once a creator's fork is visible, nobody can see its
+    # events, so rounds only advance while the honest creators alone
+    # reach a supermajority — cap forkers at n - (2n/3+1)
+    n_byz = min(int(byz_frac * n), n - supermajority(n))
+
+    events: List[Event] = []
+    # per creator: (hex, index) of every own event (fork targets)
+    own: List[List[tuple]] = [[] for _ in range(n)]
+    forks_left = [forks_per_node if i < n_byz else 0 for i in range(n)]
+    heads: List[Optional[str]] = [None] * n
+
+    def sign_fake(ev: Event) -> None:
+        ev.r = int(rng.integers(1, 1 << 62)) << 64 | int(rng.integers(0, 1 << 62))
+        ev.s = int(rng.integers(1, 1 << 62)) << 64 | int(rng.integers(0, 1 << 62))
+
+    t = 0
+    for i in range(n):
+        ev = new_event([], ("", ""), pubs[i], 0, timestamp=base_ts)
+        sign_fake(ev)
+        events.append(ev)
+        own[i].append((ev.hex(), 0))
+        heads[i] = ev.hex()
+        if len(events) >= n_events:
+            return GeneratedDag(participants, events, n, seed)
+
+    while len(events) < n_events:
+        t += 1
+        receiver = int(rng.integers(0, n))
+        sender = int(rng.integers(0, n - 1))
+        if sender >= receiver:
+            sender += 1
+        raw = t * 1_987_963
+        ts = base_ts + (raw // ts_granularity_ns) * ts_granularity_ns
+
+        sp_hex, sp_idx = own[receiver][-1][0], own[receiver][-1][1]
+        if (forks_left[receiver] > 0 and len(own[receiver]) > 1
+                and rng.random() < fork_rate):
+            # equivocate: extend a random earlier own event
+            j = int(rng.integers(0, len(own[receiver]) - 1))
+            sp_hex, sp_idx = own[receiver][j]
+            forks_left[receiver] -= 1
+        ev = new_event(
+            [], (sp_hex, heads[sender]), pubs[receiver], sp_idx + 1,
+            timestamp=ts,
+        )
+        sign_fake(ev)
+        events.append(ev)
+        own[receiver].append((ev.hex(), sp_idx + 1))
+        heads[receiver] = ev.hex()
+
+    return GeneratedDag(participants, events, n, seed)
+
+
 CHURN_ACTIONS = ("join", "leave", "garbage", "forged", "start", "stop")
 
 #: a membership body that is valid msgpack but no transition

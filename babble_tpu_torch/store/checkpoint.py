@@ -18,10 +18,12 @@ in atomically.  ``snapshot_bytes``/``load_snapshot`` are the same state
 as one msgpack pair ``[meta, npz]`` (the fast-forward payload), checked
 against hostile input before any array is materialised.
 
-Byzantine (``ForkHashgraph``) and wide (``WideHashgraph``) checkpoints
-wait for their engines (ROADMAP.md Queue 1, items 7 and 8).  Entry
-points restore onto ``device`` ("cuda" unless the caller asks for the
-CPU).
+Byzantine (``ForkHashgraph``) checkpoints are host state only (the fork
+pipeline rebuilds its tensors from the window every run): the meta
+alone, the JAX package's fork FORMAT 1 bytes, with no npz.  Wide
+(``WideHashgraph``) checkpoints wait for their engine (ROADMAP.md Queue
+1, item 8).  Entry points restore onto ``device`` ("cuda" unless the
+caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..codec import packb, unpack_pair, unpackb
 from ..common import OffsetList
 from ..consensus.digest import CommitDigest
 from ..consensus.engine import MEMBERSHIP_QUEUE_MAX, TorchHashgraph
+from ..consensus.fork_engine import ForkHashgraph
 from ..core.event import Event, FullWireEvent
 from ..membership.epoch import MAX_LOG, check_log_entry
 from ..membership.transition import parse_membership_tx
@@ -56,10 +59,6 @@ _READABLE = (2, 3, 4, 5, FORMAT_VERSION)
 _META = "meta.msgpack"
 _DEVICE = "device.npz"
 
-NOT_PORTED_BYZANTINE = (
-    "byzantine (ForkHashgraph) checkpoints are not ported yet (ROADMAP.md "
-    "Queue 1, item 7: the byzantine pair)"
-)
 NOT_PORTED_WIDE = (
     "wide (WideHashgraph) checkpoints are not ported yet (ROADMAP.md "
     "Queue 1, item 8: the wide-N engine)"
@@ -170,29 +169,37 @@ def _build_arrays(engine: TorchHashgraph) -> Dict[str, np.ndarray]:
 
 
 def engine_mode(engine) -> str:
-    """Checkpoint dispatch key: "fused" for ``TorchHashgraph`` (the
-    byzantine and wide engines are not ported)."""
+    """Checkpoint dispatch key: "byzantine" (``ForkHashgraph``) or
+    "fused" (``TorchHashgraph``).  Public — node/cli use it to match
+    checkpoints and fast-forward snapshots to the engine kind actually
+    running.  Raises for any other engine (the wide engine is not
+    ported)."""
+    if isinstance(engine, ForkHashgraph):
+        return "byzantine"
     if isinstance(engine, TorchHashgraph):
         return "fused"
     raise NotImplementedError(
-        f"no checkpoint for {type(engine).__name__}: {NOT_PORTED_BYZANTINE}"
-        f"; {NOT_PORTED_WIDE}"
+        f"no checkpoint for {type(engine).__name__}: {NOT_PORTED_WIDE}"
     )
 
 
 def save_checkpoint(engine, path: str, anchors=None) -> None:
     """Write a consistent snapshot of ``engine`` to directory ``path``
     (every inserted event flushed first).  ``anchors`` is the node's
-    attestation anchor ring (v6 meta); engine-only callers omit it."""
-    engine_mode(engine)
-    engine.flush()
-    meta = _build_meta(engine, anchors)
-    arrays = _build_arrays(engine)
+    attestation anchor ring (v6 meta); engine-only callers omit it.
+    Byzantine checkpoints are the host meta alone."""
+    if engine_mode(engine) == "byzantine":
+        meta, arrays = _build_fork_meta(engine), None
+    else:
+        engine.flush()
+        meta = _build_meta(engine, anchors)
+        arrays = _build_arrays(engine)
     tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(path)) or ".")
     try:
         with open(os.path.join(tmp, _META), "wb") as f:
             f.write(packb(meta))
-        np.savez_compressed(os.path.join(tmp, _DEVICE), **arrays)
+        if arrays is not None:
+            np.savez_compressed(os.path.join(tmp, _DEVICE), **arrays)
         if os.path.isdir(path):
             old = path + ".old"
             os.rename(path, old)
@@ -207,13 +214,236 @@ def save_checkpoint(engine, path: str, anchors=None) -> None:
 
 def snapshot_bytes(engine) -> bytes:
     """A consistent snapshot as bytes — the fast-forward payload: the
-    msgpack pair [meta, compressed npz] (its anchor ring empty)."""
-    engine_mode(engine)
+    msgpack pair [meta, compressed npz] (its anchor ring empty;
+    byzantine engines have no device payload, so the npz is empty)."""
+    if engine_mode(engine) == "byzantine":
+        return packb([packb(_build_fork_meta(engine)), b""])
     engine.flush()
     meta, arrays = _build_meta(engine), _build_arrays(engine)
     buf = io.BytesIO()
     np.savez_compressed(buf, **arrays)
     return packb([packb(meta), buf.getvalue()])
+
+
+# ----------------------------------------------------------------------
+# Byzantine (ForkHashgraph) checkpoints.  The byzantine engine's
+# device tensors are rebuilt from the host window on every consensus
+# run, so its checkpoint is pure host state: the windowed events plus
+# the branch-column assignment (which is NOT re-derivable from the
+# window alone — divergence points and evicted prefixes shaped it) and
+# the round/witness seeds that make windowed recomputation final.
+
+FORK_FORMAT_VERSION = 1
+
+
+def _build_fork_meta(engine) -> dict:
+    dag = engine.dag
+    return {
+        "version": FORK_FORMAT_VERSION,
+        "mode": "byzantine",
+        "participants": sorted(engine.participants.items()),
+        "k": dag.k,
+        "verify_signatures": engine.verify_signatures,
+        "policy": [
+            engine.auto_compact, engine.round_margin, engine.seq_window,
+            engine.compact_min,
+        ],
+        "events": [_pack_event(ev) for ev in dag.events],  # window, slot order
+        "levels": list(dag.levels),
+        "sp_slot": list(dag.sp_slot),
+        "op_slot": list(dag.op_slot),
+        "ebr": list(dag.ebr),
+        "br_parent": list(dag.br_parent),
+        "br_div": list(dag.br_div),
+        "br_used": list(dag.br_used),
+        "br_events": [list(lst) for lst in dag.br_events],
+        "br_extent": list(dag.br_extent),
+        "chain_tip": sorted(dag._chain_tip.items()),
+        "cr_events": [list(lst) for lst in dag.cr_events],
+        "cr_evicted": list(dag.cr_evicted),
+        "rseed": list(dag.rseed),
+        "wseed": list(dag.wseed),
+        "r_off": dag.r_off,
+        "evicted": dag.evicted,
+        # adversarial-ts defense: effective-timestamp overrides, same
+        # sparse (window slot, clamped ns) encoding as the host meta —
+        # honest fleets serialize an empty list
+        "ts_clamped": [
+            [i, int(dag.eff_ts[i])]
+            for i in range(len(dag.events))
+            if dag.eff_ts[i] != dag.events[i].body.timestamp
+        ],
+        "consensus": list(engine.consensus),
+        "digest": engine._digest.to_meta(),
+        "consensus_transactions": engine.consensus_transactions,
+        "last_committed_round_events": engine.last_committed_round_events,
+        "received": sorted(engine._received),
+        "lcr": engine._lcr_cache,
+    }
+
+
+def _check_fork_meta(meta: dict, max_caps: Optional[tuple]) -> None:
+    """Structural validation of an untrusted fork snapshot before any
+    object is built: every per-slot list must match the window length,
+    every branch list the column count, every slot reference must be in
+    range — and the declared sizes must sit inside our memory bounds.
+    (The honest path gets the same guarantee from _peek_npz_layout.)"""
+    n = len(meta["participants"])
+    k = int(meta["k"])
+    ne = len(meta["events"])
+    if not (1 <= k <= 8):
+        raise ValueError(f"snapshot fork budget k={k} out of bounds")
+    # format header: the restore gate compares version for equality,
+    # but the raw value still feeds error strings and future dispatch —
+    # bound it (and the mode tag) before anything interpolates it
+    ver = meta["version"]
+    if not isinstance(ver, int) or not (0 <= ver <= 1 << 16):
+        raise ValueError(f"snapshot version {ver!r} out of bounds")
+    if meta["mode"] != "byzantine":
+        raise ValueError(
+            f"snapshot mode {meta['mode']!r} is not a fork snapshot"
+        )
+    if not isinstance(meta["verify_signatures"], bool):
+        raise ValueError("snapshot verify_signatures is not a bool")
+    # policy knobs are local-overridable but the fallbacks still come
+    # from here — bound them so a hostile snapshot can't smuggle a
+    # window-freezing round_margin or a never-compacting threshold
+    # through a policy key the local node left unset
+    _ac, _rm, _sw, _cm = meta["policy"]
+    for name, v in (("round_margin", _rm), ("seq_window", _sw),
+                    ("compact_min", _cm)):
+        if not isinstance(v, int) or not (0 <= v <= 1 << 20):
+            raise ValueError(f"snapshot policy {name}={v!r} out of bounds")
+    # round seeds size the restored pipeline's r_cap (fork_engine._run
+    # takes max(rseed) - r_off as the window top): unbounded values let
+    # a hostile snapshot OOM the rejoining node's first consensus tick
+    r_off = meta["r_off"]
+    if not isinstance(r_off, int) or not (0 <= r_off <= 1 << 24):
+        raise ValueError(f"snapshot r_off={r_off!r} out of bounds")
+    for v in meta["rseed"]:
+        if not isinstance(v, int) or v < -1 or v - r_off > 1 << 16:
+            raise ValueError(f"snapshot rseed value {v!r} out of bounds")
+    for v in meta["wseed"]:
+        if not isinstance(v, int) or not (-1 <= v <= 1):
+            raise ValueError(f"snapshot wseed value {v!r} out of bounds")
+    if max_caps is not None and ne > max_caps[0]:
+        raise ValueError(
+            f"snapshot window {ne} events exceeds bound {max_caps[0]}"
+        )
+    b = n * k
+    for name, want in (("levels", ne), ("sp_slot", ne), ("op_slot", ne),
+                       ("ebr", ne), ("rseed", ne), ("wseed", ne),
+                       ("br_parent", b), ("br_div", b), ("br_used", b),
+                       ("br_events", b), ("br_extent", b),
+                       ("cr_events", n), ("cr_evicted", n)):
+        if len(meta[name]) != want:
+            raise ValueError(
+                f"snapshot field {name} has {len(meta[name])} entries, "
+                f"expected {want}"
+            )
+    for v in meta["sp_slot"] + meta["op_slot"]:
+        if not (-1 <= v < ne):
+            raise ValueError("snapshot parent slot out of range")
+    # Chain-extent plausibility: br_extent values become absolute chain
+    # indices (diff()/fast-forward arithmetic) and cr_evicted feeds the
+    # gossip vector clock — unbounded values let a hostile snapshot
+    # wedge every future diff against us, and a negative one underflows
+    # the known() comparison.  No branch can extend past the total
+    # number of slots ever inserted, and no creator can have had more
+    # slots evicted than were evicted overall.
+    evicted = meta["evicted"]
+    if not isinstance(evicted, int) or not (0 <= evicted <= 1 << 48):
+        raise ValueError(f"snapshot evicted={evicted!r} out of bounds")
+    total_slots = evicted + ne
+    for col in range(b):
+        ext = meta["br_extent"][col]
+        if not isinstance(ext, int) or not (0 <= ext <= total_slots):
+            raise ValueError(
+                f"snapshot br_extent[{col}]={ext!r} out of bounds "
+                f"(window holds {ne} events, {evicted} evicted)"
+            )
+        # a branch's divergence index sits strictly inside its extent
+        # (-1/0 for roots); past it, common_prefix walks garbage
+        div = meta["br_div"][col]
+        if not isinstance(div, int) or not (-1 <= div < max(ext, 1)):
+            raise ValueError(
+                f"snapshot br_div[{col}]={div!r} outside [-1, "
+                f"{max(ext, 1)})"
+            )
+    cr_ev = meta["cr_evicted"]
+    if any(not isinstance(v, int) or v < 0 for v in cr_ev) or \
+            sum(cr_ev) > evicted:
+        raise ValueError(
+            f"snapshot cr_evicted={cr_ev!r} inconsistent with "
+            f"{evicted} total evicted slots"
+        )
+    # Level consistency: levels drive the per-level kernel schedule
+    # (every event strictly after its parents).  A level that is not
+    # strictly greater than both in-window parents' would let two
+    # mutually-ancestral events share a schedule row — the coordinate
+    # scan then reads a stale la/fd row and every predicate downstream
+    # is silently wrong.  (Events with evicted parents are pseudo-roots;
+    # any non-negative level is plausible for them.)
+    levels = meta["levels"]
+    for i, lvl in enumerate(levels):
+        if not isinstance(lvl, int) or not (0 <= lvl <= 1 << 24):
+            raise ValueError(f"snapshot levels[{i}]={lvl!r} out of bounds")
+    for i in range(ne):
+        for p in (meta["sp_slot"][i], meta["op_slot"][i]):
+            if p >= 0 and levels[i] <= levels[p]:
+                raise ValueError(
+                    f"snapshot levels[{i}]={levels[i]} not greater than "
+                    f"parent slot {p}'s level {levels[p]}"
+                )
+    for v in meta["ebr"]:
+        if not (0 <= v < b):
+            raise ValueError("snapshot branch column out of range")
+    for v in meta["br_parent"]:
+        if not isinstance(v, int) or not (-1 <= v < b):
+            raise ValueError("snapshot branch parent out of range")
+    # branch-parent chains must terminate: _chain_slots/common_prefix
+    # walk `c = br_parent[c]` while c >= 0, and a cycle would spin the
+    # rejoining node forever under its core lock
+    for c0 in range(b):
+        c, steps = c0, 0
+        while c >= 0:
+            c = meta["br_parent"][c]
+            steps += 1
+            if steps > b:
+                raise ValueError("snapshot branch parent chain is cyclic")
+    for lst in list(meta["br_events"]) + list(meta["cr_events"]):
+        for s in lst:
+            if not (0 <= s < ne):
+                raise ValueError("snapshot branch slot out of range")
+    for col, s in meta["chain_tip"]:
+        if not (0 <= col < b and 0 <= s < ne):
+            raise ValueError("snapshot chain tip out of range")
+    # effective-timestamp overrides: same int64-exact bound as the host
+    # meta — 2**63 would OverflowError the adopting node's next
+    # build_batch np.int64 fill, exactly the hostile DoS this gates
+    clamped = meta.get("ts_clamped", [])
+    if not isinstance(clamped, (list, tuple)) or len(clamped) > ne:
+        raise ValueError("snapshot ts_clamped out of bounds")
+    for item in clamped:
+        i, eff = item
+        if not isinstance(i, int) or not (0 <= i < ne) \
+                or not isinstance(eff, int) \
+                or not (-(1 << 63) <= eff < (1 << 63)):
+            raise ValueError("snapshot ts_clamped entry malformed")
+    # consensus log + counters: these size the restored OffsetList and
+    # feed lcr/ordering arithmetic — a hostile snapshot must not be
+    # able to allocate unbounded strings or underflow the counters
+    _check_consensus_log(meta["consensus"], wrapped=False)
+    for name, hi in (("consensus_transactions", 1 << 48),
+                     ("last_committed_round_events", 1 << 32)):
+        v = meta[name]
+        if not isinstance(v, int) or not (0 <= v <= hi):
+            raise ValueError(f"snapshot {name}={v!r} out of bounds")
+    _check_received(meta["received"], slots=False)
+    lcr = meta["lcr"]
+    if not isinstance(lcr, int) or not (-1 <= lcr <= 1 << 32):
+        raise ValueError(f"snapshot lcr={lcr!r} out of bounds")
+    CommitDigest.check_meta(meta.get("digest"))
 
 
 def _check_consensus_log(cons, wrapped: bool) -> None:
@@ -495,6 +725,104 @@ def _pol(policy: dict, key: str, snap_val):
     return snap_val if v is None else v
 
 
+def _restore_fork_engine(
+    meta: dict,
+    commit_callback: Optional[Callable] = None,
+    policy: Optional[dict] = None,
+    device="cuda",
+):
+    if meta["version"] != FORK_FORMAT_VERSION:
+        raise ValueError(
+            f"unsupported byzantine checkpoint version {meta['version']}"
+        )
+    policy = policy or {}
+
+    def pol(key, snap_val):
+        return _pol(policy, key, snap_val)
+
+    participants = {kk: int(v) for kk, v in meta["participants"]}
+    auto_compact, round_margin, seq_window, compact_min = meta["policy"]
+    engine = ForkHashgraph(
+        participants, k=int(meta["k"]),
+        commit_callback=commit_callback,
+        verify_signatures=pol("verify_signatures", meta["verify_signatures"]),
+        auto_compact=pol("auto_compact", auto_compact),
+        round_margin=pol("round_margin", round_margin),
+        seq_window=pol("seq_window", seq_window),
+        compact_min=pol("compact_min", compact_min),
+        device=device,
+    )
+    dag = engine.dag
+    events = [_unpack_event(o) for o in meta["events"]]
+    evicted = int(meta["evicted"])
+    for i, ev in enumerate(events):
+        # diff() sorts by topological index; mirror ForkDag.insert's
+        # absolute stamping (ops/forks.py)
+        ev.topological_index = evicted + i
+    dag.events = events
+    dag.slot_of = {ev.hex(): i for i, ev in enumerate(events)}
+    # Ancestry integrity: the slot indices must agree with the events'
+    # OWN (signed) parent hashes — a hostile snapshot that rewires
+    # sp/op_slot (or claims an in-window parent "evicted") could hide
+    # an equivocation's divergence point from the branch-column layout.
+    # An absent hash legitimately means the parent rolled off the
+    # window; a PRESENT hash must map to exactly the declared slot.
+    k_branches = dag.k
+    for i, ev in enumerate(events):
+        for name, want, ref in (
+            ("sp_slot", int(meta["sp_slot"][i]), ev.self_parent),
+            ("op_slot", int(meta["op_slot"][i]), ev.other_parent),
+        ):
+            have = dag.slot_of.get(ref, -1) if ref else -1
+            if want != have:
+                raise ValueError(
+                    f"snapshot {name}[{i}]={want} contradicts the "
+                    f"event's signed parent hash (window slot {have})"
+                )
+        # branch-column ownership: an event may only sit in one of ITS
+        # OWN creator's k columns — otherwise a hostile snapshot can
+        # frame an honest creator as an equivocator (forked_creators
+        # alarms, divergence data for a fork that never happened)
+        col = int(meta["ebr"][i])
+        if col // k_branches != participants.get(ev.creator, -1):
+            raise ValueError(
+                f"snapshot assigns event {i} to branch column {col}, "
+                "which belongs to a different creator"
+            )
+    dag.levels = [int(v) for v in meta["levels"]]
+    dag.sp_slot = [int(v) for v in meta["sp_slot"]]
+    dag.op_slot = [int(v) for v in meta["op_slot"]]
+    dag.ebr = [int(v) for v in meta["ebr"]]
+    dag.br_parent = [int(v) for v in meta["br_parent"]]
+    dag.br_div = [int(v) for v in meta["br_div"]]
+    dag.br_used = [bool(v) for v in meta["br_used"]]
+    dag.br_events = [[int(s) for s in lst] for lst in meta["br_events"]]
+    dag.br_extent = [int(v) for v in meta["br_extent"]]
+    dag._chain_tip = {int(c): int(s) for c, s in meta["chain_tip"]}
+    dag.cr_events = [[int(s) for s in lst] for lst in meta["cr_events"]]
+    dag.cr_evicted = [int(v) for v in meta["cr_evicted"]]
+    dag.rseed = [int(v) for v in meta["rseed"]]
+    dag.wseed = [int(v) for v in meta["wseed"]]
+    dag.r_off = int(meta["r_off"])
+    dag.evicted = evicted
+    # effective timestamps: the claim unless a clamp override says
+    # otherwise (sparse encoding, _build_fork_meta)
+    eff = [ev.body.timestamp for ev in events]
+    for i, v in meta.get("ts_clamped", []):
+        eff[i] = int(v)
+    dag.eff_ts = eff
+    engine.consensus = list(meta["consensus"])
+    engine._digest = CommitDigest.from_meta(meta.get("digest"))
+    engine.consensus_transactions = int(meta["consensus_transactions"])
+    engine.last_committed_round_events = int(
+        meta["last_committed_round_events"]
+    )
+    engine._received = set(meta["received"])
+    engine._lcr_cache = int(meta["lcr"])
+    engine._dirty = True
+    return engine
+
+
 def _expected_layout(cfg: DagConfig) -> Dict[str, tuple]:
     """(shape, dtype) of every DagState field for capacity cfg, as numpy
     dtypes (the npz's) — mirrors init_state without allocating."""
@@ -570,7 +898,16 @@ def load_snapshot(
             f"bound {max_participants}"
         )
     if meta.get("mode") == "byzantine":
-        raise NotImplementedError(NOT_PORTED_BYZANTINE)
+        _check_fork_meta(meta, max_caps)
+        engine = _restore_fork_engine(meta, commit_callback, policy, device)
+        if verify_events:
+            for ev in engine.dag.events:
+                if not ev.verify():
+                    raise ValueError(
+                        f"snapshot event {ev.hex()[:18]}… has a bad "
+                        "signature"
+                    )
+        return engine
     _check_host_meta(meta)
     if meta.get("mode") == "wide":
         raise NotImplementedError(NOT_PORTED_WIDE)
@@ -649,12 +986,13 @@ def load_checkpoint(
     path: str,
     commit_callback: Optional[Callable] = None,
     device="cuda",
-) -> TorchHashgraph:
-    """Reconstruct an engine from a checkpoint directory on ``device``."""
+):
+    """Reconstruct an engine (fused or byzantine) from a checkpoint
+    directory on ``device``."""
     with open(os.path.join(path, _META), "rb") as f:
         meta = unpackb(f.read(), strict_map_key=False)
     if meta.get("mode") == "byzantine":
-        raise NotImplementedError(NOT_PORTED_BYZANTINE)
+        return _restore_fork_engine(meta, commit_callback, device=device)
     if meta.get("mode") == "wide":
         raise NotImplementedError(NOT_PORTED_WIDE)
     cfg = config_from_fields(meta["cfg"])

@@ -148,6 +148,11 @@ class TestnetRunner:
     with_clients: bool = True
     ports: PortLayout = field(default_factory=PortLayout)
     extra_node_args: List[str] = field(default_factory=list)
+    #: run fork-aware nodes (accept + detect equivocations).  No longer
+    #: required for crash/restart chaos: with `wal` on, an honest node
+    #: replays its write-ahead log at restart and resumes at its
+    #: published head seq instead of re-minting indexes
+    byzantine: bool = False
     #: per-node checkpoint dirs + a tight save interval, so a killed
     #: node restarts from recent state instead of a fresh root
     checkpoints: bool = False
@@ -200,6 +205,8 @@ class TestnetRunner:
             # until its join tx's boundary admits it
             args += ["--bootstrap_peers",
                      os.path.join(d, "bootstrap_peers.json")]
+        if self.byzantine:
+            args.append("--byzantine")
         if self.checkpoints:
             args += ["--checkpoint_dir", os.path.join(d, "ckpt"),
                      "--checkpoint_interval",

@@ -9,10 +9,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 
 1. device — print the card's name and power limit (nvidia-smi); no CUDA
    device is a failure.
-2. build  — compile every kernel of the main path from ``csrc/`` (one
-   nvcc per source, all started together) and print ``-Xptxas -v``,
-   then each kernel's registers and shared memory as the runtime sees
-   them (la_walk: static staging plus the dynamic int16 column).
+2. build  — compile every kernel of the main paths from ``csrc/``
+   (``la_walk.cu`` and ``fork_ss.cu``, one nvcc per source, all started
+   together) and print ``-Xptxas -v``, then la_walk's registers and
+   shared memory as the runtime sees them (static staging plus the
+   dynamic int16 column).
 3. kernel — each kernel's wrapper on the card against its plain torch
    version on the same card inputs, at the main path's shapes (the
    64 x 65,536 slice DAG), on one small DAG, at the largest size the
@@ -191,6 +192,32 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    drops counted there must be above 0, and every node must have booted
    on the card under the plan.  la_walk's
    count stays 0.
+11. byzantine — the fork-aware pair (``ops/forks.py``, its kernel
+   ``csrc/fork_ss.cu``, ``ForkHashgraph``, byzantine nodes).  (b) the
+   BASELINE byzantine config, ``random_byzantine_fork_batch(1024,
+   100_000, seed=11, fork_rate=0.02, r_cap=16)`` as bench.py builds it,
+   through ``fork_pipeline`` on the card: the counts set to 0 just
+   before, fork_ss launched, la_walk not; bench's checks (events ordered
+   > 0, events detecting forks > 0, max_round < r_cap - 1); every
+   ``ForkOut`` field equal to a second run with the plain twin
+   (``ss_counts_plain``), bit for bit.  It prints the host build, the
+   first and warm runs with events ordered/s, the closure's round and
+   pass counts, the fd strategy and peak device memory.  (a) fork_ss
+   against its plain twin, exact, at that run's two call shapes (the
+   rounds closure's 1 x 131,073 x 2,048 and the fame's 16 x 2,048 x
+   2,048, inputs rebuilt from the run's outputs), with ms warm and L2
+   cold by CUDA events, the plain ms and the bound, the kernel's share
+   of the warm pipeline; then one small DAG's two shapes and ragged
+   tiles (``BYZ_RAGGED``).  (c) ``BYZ_MID`` against the JAX package's
+   counts and digest (``BYZ_EXPECT``, made on the CPU by
+   ``JAX_PLATFORMS=cpu python -m tests.test_torch_forks``).  (d)
+   fork-attack at seeds 1 and 2 through the deterministic runner's
+   byzantine Nodes, held to ``CHAOS_EXPECT`` with the fork_detected
+   invariant checked, fork_ss launched and la_walk not; then a
+   ``ForkHashgraph`` on the card over ``random_byzantine_dag(
+   **BYZ_ENGINE)`` equal to the JAX engine's commits
+   (``BYZ_ENGINE_EXPECT``) and a checkpoint save and load of it,
+   digests equal.
 
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -339,8 +366,8 @@ TCP_TESTNET = dict(nodes=4, heartbeat_ms=10, cache_size=50000,
 CODEC_FRAME = dict(n=4, events=4096, seed=11, tx_bytes=64)
 
 # phase 10: the chaos plane (babble_tpu_torch/chaos): the canned scenarios
-# that run the fused engine (all but fork-attack, whose byzantine engine
-# is ROADMAP.md Queue 1 item 7), 4 nodes each at the JAX package's step
+# that run the fused engine (all but fork-attack, which phase 11(d) runs
+# on the byzantine engine), 4 nodes each at the JAX package's step
 # counts, at seeds 1 and 2, and the JAX package's mini-disk-rot
 # (tests/test_chaos_scenarios.py _MINI_DISKROT) at seeds 1 and 2
 CHAOS_SWEEP = [
@@ -350,6 +377,8 @@ CHAOS_SWEEP = [
     "stale-replay", "wan-lossy",
 ]
 CHAOS_SEEDS = (1, 2)
+# phase 11(d): the canned scenarios that run the byzantine engine
+CHAOS_BYZANTINE = ["fork-attack"]
 CHAOS_MINI_DISKROT = {
     "name": "mini-disk-rot", "nodes": 3, "steps": 130, "seed": 5,
     "cache_size": 1024,
@@ -369,7 +398,7 @@ CHAOS_MINI_DISKROT = {
 # that FaultyTransport over TcpTransport injects faults the phase counts
 CHAOS_LIVE = dict(scenario="crash-restart", tick_seconds=0.2, rate=25.0,
                   drop=0.05)
-# each run of the sweep under the JAX package: fingerprint (fault
+# each run of both sweeps under the JAX package: fingerprint (fault
 # schedule, every node's committed and consensus order), committed
 # transactions per node, faults by kind, invariants held; from a CPU run
 # of ``JAX_PLATFORMS=cpu python -m tests.test_torch_chaos_scenarios
@@ -427,6 +456,14 @@ CHAOS_EXPECT = {'clock-skew': {1: {'fingerprint': '7415e8d361432a754088de1b90a0a
                                      'duplicate': 21,
                                      'reorder': 17},
                     'ok': True}},
+ 'fork-attack': {1: {'fingerprint': '78925cebb445cb71d0deefa709fdba13ba1c1aa3ef65d83e6a004a9d69aa2d5c',
+                     'committed': {0: 12, 1: 12, 2: 12, 3: 12},
+                     'fault_counts': {'drop': 5, 'fork_attack': 1},
+                     'ok': True},
+                 2: {'fingerprint': '61eadba8228b48941de11dae57734a8c53770be7b9bac3d5f4701c615cc548e6',
+                     'committed': {0: 12, 1: 12, 2: 12, 3: 12},
+                     'fault_counts': {'drop': 8, 'fork_attack': 1},
+                     'ok': True}},
  'forged-snapshot': {1: {'fingerprint': '34cbe2f22078e13b34ee8fd89c3f491627c8287197045509d8d18da8e07cded2',
                          'committed': {0: 12, 1: 12, 2: 12, 3: 0},
                          'fault_counts': {'crash': 1,
@@ -542,10 +579,47 @@ CHAOS_EXPECT = {'clock-skew': {1: {'fingerprint': '7415e8d361432a754088de1b90a0a
                                     'ge_drop': 57},
                    'ok': True}}}
 
+# phase 11: the byzantine pair (ops/forks.py, the fork_ss kernel, the
+# fork engine and byzantine nodes).  (b) BASELINE.json's second config,
+# "1024-node DAG with 1/3 byzantine forks", as bench.py's run_byzantine
+# builds it: nothing cut
+BYZ_FULL = dict(n=1024, e=100_000, seed=11, fork_rate=0.02, r_cap=16)
+# (c) a mid-size batch the JAX pipeline finishes on a CPU, and its
+# counts and SHA-256 over round, witness, famous, rr and cts (byz_summary)
+# from ``JAX_PLATFORMS=cpu python -m tests.test_torch_forks``
+BYZ_MID = dict(n=128, e=16384, seed=11, fork_rate=0.02)
+BYZ_EXPECT = {
+    "max_round": 8, "lcr": 6, "ordered": 8764, "detecting": 15361,
+    "digest": "8c212408d3f2ac4c986084ea78dd7fd0e62d757aa808da73a22a1b64b2ade923",
+}
+# (d) a byzantine engine for the checkpoint round trip, and the JAX
+# ForkHashgraph's commits over the same DAG
+# (tests/test_torch_forks.py test_chip_smokes_engine_expectation)
+BYZ_ENGINE = dict(n=32, n_events=4000, seed=5, fork_rate=0.05)
+BYZ_ENGINE_EXPECT = {
+    "commit_length": 2797, "lcr": 10,
+    "commit_digest":
+        "1f54707866494609ee01dd5474f733fbda235618e56882b92ce8ccef2c027189",
+}
+# (a) one small DAG, and ragged tiles (X, W and N off the 64 x 64 tile
+# and the creator chunk; K = 3 and 8 as well as 2): (g, x, w, n, k)
+BYZ_SMALL = dict(n=32, e=2048, seed=11, fork_rate=0.02)
+BYZ_RAGGED = [(3, 1000, 77, 37, 3), (2, 4097, 130, 1025, 2),
+              (1, 65, 63, 9, 8)]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# integer rates for fork_ss' bound, 132 SMs at 1.98 GHz boost.  The CUDA
+# C++ Programming Guide's throughput table gives compute capability 9.0
+# 64 results a clock an SM for 32-bit integer compare and for 32-bit
+# integer multiply-add; Nsight Compute's pipe list puts the compares
+# (ISETP) on the ALU pipe and IMAD on the FMA pipe, so the two can run
+# side by side, and the four warp schedulers issue at most 128 lane
+# operations a clock an SM.  The table's f32 rate is twice the first.
+PEAK_INT32_OPS_S = 132 * 64 * 1.98e9      # ALU pipe: compares
+PEAK_IMAD_OPS_S = 132 * 64 * 1.98e9       # FMA pipe: IMAD accumulations
+PEAK_ISSUE_OPS_S = 132 * 128 * 1.98e9     # all lane operations issued
 
 
 def card_line() -> str:
@@ -2637,6 +2711,329 @@ def phase_chaos_live(card: str, device="cuda") -> None:
                                  f"{text[-2000:]}")
 
 
+def byz_summary(out, n_events: int) -> dict:
+    """What ``BYZ_EXPECT`` holds of a ``ForkOut`` (the JAX package's or
+    the port's): the counts bench.py checks and a SHA-256 over round,
+    witness, famous, rr and cts in their dtypes."""
+    import numpy as np
+
+    def host(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+    h = hashlib.sha256()
+    for name, dt in (("round", np.int32), ("witness", np.bool_),
+                     ("famous", np.int8), ("rr", np.int32),
+                     ("cts", np.int64)):
+        h.update(np.ascontiguousarray(host(getattr(out, name)), dt)
+                 .tobytes())
+    rr = host(out.rr)[:n_events]
+    det = host(out.det)[:n_events]
+    return dict(max_round=int(host(out.max_round)), lcr=int(host(out.lcr)),
+                ordered=int((rr >= 0).sum()),
+                detecting=int(det.any(axis=1).sum()), digest=h.hexdigest())
+
+
+def ss_bound(g: int, x: int, w: int, n: int, k: int):
+    """The least time one fork_ss call could take on the card: the larger
+    of its operations and its bytes (la, hw, det read once, the counts
+    written once) over the memory rate.  The function needs X*W*B
+    compares (B = N*K; the OR over K folds into the compare's predicate)
+    and X*W*N accumulations (the not-detected mask folds into la as the
+    tile is staged, X*N work): the compares on the ALU pipe, the adds as
+    IMAD on the FMA pipe beside them, all within the issue rate.
+    Returns (ms, "operations" or "bytes", ms with the adds on the ALU
+    pipe too)."""
+    b = n * k
+    cmp, add = g * x * w * b, g * x * w * n
+    nbytes = 4 * g * (x * b + w * b + x * w) + g * x * n
+    t_ops = max(cmp / PEAK_INT32_OPS_S, add / PEAK_IMAD_OPS_S,
+                (cmp + add) / PEAK_ISSUE_OPS_S)
+    t_bytes = nbytes / PEAK_BYTES_S
+    one_pipe = max((cmp + add) / PEAK_INT32_OPS_S, t_bytes)
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", one_pipe * 1e3)
+
+
+def byz_call_inputs(cfg, batch, out):
+    """The two fork_ss call shapes of a pipeline run, rebuilt from its
+    outputs: the rounds closure's (every event against one candidate
+    witness per branch, here round 1's witness row) and the fame's
+    (every round's witnesses against the previous round's)."""
+    import torch
+
+    from babble_tpu_torch.ops import forks as F
+    from babble_tpu_torch.ops.state import INT32_MAX, sanitize
+
+    fdet = F._first_det(cfg, batch, out.det)
+    helper = F._helper(cfg, batch, out.fd, fdet)
+    row = out.wslot[min(1, cfg.r_cap - 1)]
+    hw = torch.where((row >= 0)[:, None],
+                     helper[sanitize(row, cfg.e_cap).long()], INT32_MAX)
+    closure = (out.la[None], out.det[None], hw[None].contiguous(), cfg.k)
+    wsl = out.wslot[:cfg.r_cap]
+    ws = sanitize(wsl, cfg.e_cap).long()
+    hww = torch.where((wsl >= 0)[:, :, None], helper[ws], INT32_MAX)
+    law, detw = out.la[ws], out.det[ws]
+    fame = (torch.cat([law[1:], torch.full_like(law[:1], -1)]),
+            torch.cat([detw[1:], torch.zeros_like(detw[:1])]),
+            hww.contiguous(), cfg.k)
+    return {"closure": closure, "fame": fame}
+
+
+def check_fork_ss(name: str, args, timed: bool = False) -> dict:
+    """fork_ss against its plain twin on the card, exact; with ``timed``
+    the kernel's ms warm (CUDA events, mean of 5 after one warm-up) and
+    L2 cold (mean of 3), and the plain twin's ms (one run)."""
+    import torch
+
+    from babble_tpu_torch.ops.forks import ss_counts, ss_counts_plain
+
+    la, det, hw, k = args
+    g, x, b = la.shape
+    w, n = hw.shape[1], det.shape[2]
+    got = ss_counts(la, det, hw, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ss_counts_plain(la, det, hw, k)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((got.long() - want.long()).abs().max().item()) \
+        if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"fork_ss != ss_counts_plain ({name}, g={g} "
+                             f"x={x} w={w} n={n} k={k}): "
+                             f"{int((got != want).sum())} entries differ")
+    bound, by, one_pipe = ss_bound(g, x, w, n, k)
+    line = (f"[byz] (a) fork_ss {name} g={g} x={x} w={w} n={n} k={k}: "
+            f"exact (max count {int(got.max()) if got.numel() else 0}); "
+            f"plain {plain_ms:.2f} ms")
+    row = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by)
+    if timed:
+        row["ms"] = cuda_ms(lambda: ss_counts(la, det, hw, k), reps=5)
+        row["ms_cold"] = cuda_ms_cold(lambda: ss_counts(la, det, hw, k),
+                                      reps=3)
+        line += (f"; kernel {row['ms']:.3f} ms warm, {row['ms_cold']:.3f} "
+                 f"ms L2 cold (CUDA events, means of 5 and 3); bound "
+                 f"{bound:.3f} ms ({by}); bound / warm "
+                 f"{bound / row['ms']:.3f}; with the adds on the ALU "
+                 f"pipe {one_pipe:.3f} ms, / warm "
+                 f"{one_pipe / row['ms']:.3f}")
+    print(line, flush=True)
+    return row
+
+
+def byz_engine_round_trip(device: str, node_launches: int) -> None:
+    """A ``ForkHashgraph`` on the card over ``random_byzantine_dag(
+    **BYZ_ENGINE)``, held to the JAX engine's commits
+    (``BYZ_ENGINE_EXPECT``), then a checkpoint save and load of it."""
+    import os
+    import shutil
+    import tempfile
+
+    from babble_tpu_torch.consensus.fork_engine import ForkHashgraph
+    from babble_tpu_torch.sim.generator import random_byzantine_dag
+    from babble_tpu_torch.store import load_checkpoint, save_checkpoint
+
+    dag = random_byzantine_dag(**BYZ_ENGINE)
+    eng = ForkHashgraph(dag.participants, device=device)
+    for ev in dag.events:
+        eng.insert_event(ev)
+    eng.run_consensus()
+    got = dict(commit_length=eng.commit_length, lcr=eng.lcr,
+               commit_digest=eng.commit_digest)
+    tmp = tempfile.mkdtemp(prefix="babble-byz-ckpt-")
+    try:
+        save_checkpoint(eng, os.path.join(tmp, "c"))
+        back = load_checkpoint(os.path.join(tmp, "c"), device=device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = (back.commit_digest == eng.commit_digest
+            and back.commit_length == eng.commit_length
+            and back.known() == eng.known() and back.lcr == eng.lcr
+            and back.max_round() == eng.max_round())
+    verdict = "==" if got == BYZ_ENGINE_EXPECT else "!="
+    print(f"[byz] (d) engine over random_byzantine_dag({BYZ_ENGINE}): "
+          f"{verdict} BYZ_ENGINE_EXPECT ({eng.commit_length} committed, "
+          f"lcr {eng.lcr}); checkpoint round trip: digests "
+          f"{'equal' if same else 'DIFFER'}; fork_ss launches in the "
+          f"fork-attack runs {node_launches}, la_walk 0",
+          flush=True)
+    if got != BYZ_ENGINE_EXPECT:
+        raise AssertionError(f"the byzantine engine != the JAX package's: "
+                             f"{got} vs {BYZ_ENGINE_EXPECT}")
+    if not same:
+        raise AssertionError("byzantine checkpoint round trip changed the "
+                             "engine")
+
+
+def phase_byzantine(dev, card: str) -> dict:
+    """Phase 11 (module docstring).  Returns fork_ss's JSON row."""
+    import torch
+
+    from babble_tpu_torch.chaos import ScenarioRunner
+    from babble_tpu_torch.ops import forks as F
+    from babble_tpu_torch.ops.pallas_ingest import la_walk
+    from babble_tpu_torch.sim.arrays import random_byzantine_fork_arrays
+
+    device = dev.type
+    t_phase = time.perf_counter()
+    # (b) the BASELINE byzantine config on the card, the main path
+    full = {k: v for k, v in BYZ_FULL.items() if k not in ("n", "e")}
+    t0 = time.perf_counter()
+    cfg, arrays = random_byzantine_fork_arrays(BYZ_FULL["n"], BYZ_FULL["e"],
+                                               **full)
+    t1 = time.perf_counter()
+    batch = F.fork_batch_from_numpy(arrays, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"[byz] (b) host build {(t1 - t0) * 1e3:.1f} ms (numpy over "
+          f"{BYZ_FULL['e']} events), copy to the card {(t2 - t1) * 1e3:.1f} "
+          f"ms; {cfg}, schedule {tuple(batch.sched.shape)}", flush=True)
+    F.ss_counts.launches = 0
+    la_walk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    out = F.fork_pipeline(cfg, batch, stats=stats)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = F.ss_counts.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches == 0 or la_walk.launches:
+        raise AssertionError(f"the byzantine pipeline launched fork_ss "
+                             f"{launches} times and la_walk "
+                             f"{la_walk.launches} times")
+    got = byz_summary(out, BYZ_FULL["e"])
+    if got["ordered"] <= 0 or got["detecting"] <= 0 \
+            or got["max_round"] >= cfg.r_cap - 1:
+        raise AssertionError(f"bench's checks fail at the BASELINE size: "
+                             f"{got}, r_cap {cfg.r_cap}")
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        F.fork_pipeline(cfg, batch)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    warm_ms = min(warm)
+    print(f"[byz] (b) fork_pipeline {BYZ_FULL['n']} x {BYZ_FULL['e']}: "
+          f"ordered {got['ordered']}, events detecting forks "
+          f"{got['detecting']}, max_round {got['max_round']} (r_cap "
+          f"{cfg.r_cap}), lcr {got['lcr']}; fd {stats['fd']}; closure "
+          f"rounds {stats['rounds']}, closure passes "
+          f"{stats['closure_passes']}; fork_ss launches {launches}; first "
+          f"run {first_ms:.1f} ms, warm {warm[0]:.1f} / {warm[1]:.1f} ms "
+          f"({got['ordered'] / warm_ms * 1e3:,.0f} events ordered/s); "
+          f"peak {peak / 2**30:.2f} GiB; {card}", flush=True)
+    t0 = time.perf_counter()
+    plain = F.fork_pipeline(cfg, batch, ss=F.ss_counts_plain)
+    torch.cuda.synchronize()
+    plain_run_ms = (time.perf_counter() - t0) * 1e3
+    bad = [f for f in F.ForkOut._fields
+           if not torch.equal(getattr(out, f), getattr(plain, f))]
+    if bad:
+        raise AssertionError(f"the kernel's run != the plain twin's on "
+                             f"{bad}")
+    print(f"[byz] (b) the same pipeline with the plain twin: every ForkOut "
+          f"field equal; {plain_run_ms:.1f} ms", flush=True)
+    del plain
+
+    # (a) the kernel against its twin: this run's two call shapes, one
+    # small DAG and ragged tiles
+    calls = byz_call_inputs(cfg, batch, out)
+    row_c = check_fork_ss("closure shape", calls["closure"], timed=True)
+    row_f = check_fork_ss("fame shape", calls["fame"], timed=True)
+    n_fame = 1
+    n_closure = launches - n_fame
+    share = (n_closure * row_c["ms"] + n_fame * row_f["ms"]) / warm_ms
+    print(f"[byz] (a) fork_ss share of the warm pipeline: {share:.3f} "
+          f"({n_closure} closure calls + {n_fame} fame call at their warm "
+          f"ms)", flush=True)
+    del calls, out
+    small = {k: v for k, v in BYZ_SMALL.items() if k not in ("n", "e")}
+    scfg, sarr = random_byzantine_fork_arrays(BYZ_SMALL["n"], BYZ_SMALL["e"],
+                                              **small)
+    sb = F.fork_batch_from_numpy(sarr, dev)
+    sout = F.fork_pipeline(scfg, sb)
+    for name, args in byz_call_inputs(scfg, sb, sout).items():
+        check_fork_ss(f"small {name}", args)
+    gen = torch.Generator().manual_seed(3)
+    for g, x, w, n, k in BYZ_RAGGED:
+        la = torch.randint(-1, 40, (g, x, n * k), generator=gen,
+                           dtype=torch.int32)
+        hw = torch.randint(0, 45, (g, w, n * k), generator=gen,
+                           dtype=torch.int32)
+        hw[hw >= 40] = 2**31 - 1
+        det = torch.rand((g, x, n), generator=gen) < 0.2
+        check_fork_ss("ragged", (la.to(dev), det.to(dev), hw.to(dev), k))
+
+    # (c) the mid-size batch against the JAX package's counts and digest
+    mid = {k: v for k, v in BYZ_MID.items() if k not in ("n", "e")}
+    t0 = time.perf_counter()
+    mcfg, marr = random_byzantine_fork_arrays(BYZ_MID["n"], BYZ_MID["e"],
+                                              **mid)
+    mout = F.fork_pipeline(mcfg, F.fork_batch_from_numpy(marr, dev))
+    got = byz_summary(mout, BYZ_MID["e"])
+    verdict = "== BYZ_EXPECT" if got == BYZ_EXPECT else "!= BYZ_EXPECT"
+    print(f"[byz] (c) {BYZ_MID['n']} x {BYZ_MID['e']}: {verdict} {got}; "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms with the host build",
+          flush=True)
+    if got != BYZ_EXPECT:
+        raise AssertionError(f"mid-size batch != the JAX package's: {got} "
+                             f"vs {BYZ_EXPECT}")
+    del mout
+
+    # (d) the node path: fork-attack through the deterministic runner's
+    # byzantine Nodes, then a checkpoint round trip of one node's engine
+    logging.disable(logging.WARNING)
+    F.ss_counts.launches = 0
+    la_walk.launches = 0
+    failed = []
+    try:
+        for name in CHAOS_BYZANTINE:
+            for seed in CHAOS_SEEDS:
+                t0 = time.perf_counter()
+                result = ScenarioRunner(chaos_scenario(name, seed),
+                                        seed=seed, device=device).run()
+                g = chaos_summary(result)
+                want = CHAOS_EXPECT[name][seed]
+                ok = g == want and "fork_detected" in result.report.checked
+                print(f"[byz] (d) {name} seed {seed}: "
+                      f"{'== CHAOS_EXPECT' if ok else '!= CHAOS_EXPECT'}, "
+                      f"fingerprint {g['fingerprint'][:16]}, committed "
+                      f"{list(g['committed'].values())}, invariants "
+                      f"{'hold' if g['ok'] else 'VIOLATED'} "
+                      f"({', '.join(result.report.checked)}); faults "
+                      f"{g['fault_counts']}; wall "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                if not ok:
+                    failed.append((name, seed, g))
+    finally:
+        logging.disable(logging.NOTSET)
+    node_launches = F.ss_counts.launches
+    if failed:
+        raise AssertionError(f"fork-attack runs != the JAX package's: "
+                             f"{failed}")
+    if node_launches == 0 or la_walk.launches:
+        raise AssertionError(f"the byzantine nodes launched fork_ss "
+                             f"{node_launches} times and la_walk "
+                             f"{la_walk.launches} times")
+    byz_engine_round_trip(device, node_launches)
+    print(f"[byz] phase 11: {time.perf_counter() - t_phase:.1f} s; {card}",
+          flush=True)
+    return {
+        "name": "fork_ss", "route": "cuda",
+        "source": "babble_tpu_torch/csrc/fork_ss.cu",
+        "replaces": "babble_tpu/ops/forks.py:649",
+        "launches": launches, "max_abs_err": row_c["max_abs_err"],
+        "ms": row_c["ms"], "ms_cold": row_c["ms_cold"],
+        "plain_ms": row_c["plain_ms"], "bound_ms": row_c["bound_ms"],
+        "bound_by": row_c["bound_by"], "library_ms": None,
+        "fame_ms": row_f["ms"], "fame_plain_ms": row_f["plain_ms"],
+        "fame_bound_ms": row_f["bound_ms"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2651,7 +3048,7 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["la_walk"])
+    logs = cuda_build.build(["la_walk", "fork_ss"])
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in logs.items():
         print(f"[build] {name}:\n{text.strip()}", flush=True)
@@ -2704,8 +3101,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s, (b) "
           f"{time.perf_counter() - t1:.1f} s)", flush=True)
 
+    byz_row = phase_byzantine(dev, card)
+
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": [row, byz_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

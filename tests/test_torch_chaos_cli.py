@@ -123,14 +123,38 @@ def test_chaos_run_flaky_link_prints_chip_smokes_fingerprint():
             == chip_smoke.CHAOS_EXPECT["flaky-link"][1]["fingerprint"])
 
 
-def test_chaos_run_of_a_byzantine_scenario_exits_naming_item_7(tmp_path):
+def test_chaos_run_of_a_byzantine_scenario_exits_naming_item_7(
+        tmp_path, monkeypatch):
+    """The byzantine scenarios (ROADMAP item 7, refused before the port
+    had the engine): ``chaos run fork-attack`` prints the JAX cli's
+    fingerprint (chip_smoke.CHAOS_EXPECT, held to the JAX package by
+    tests/test_torch_chaos_scenarios.py), and ``--live`` hands a
+    byzantine scenario to ``run_live`` unrefused.  The name is the
+    refusal test's that this one replaced in place."""
+    import chip_smoke
+    from babble_tpu_torch import chaos
+
+    rc, out = _out(pcli.main, ["chaos", "run", "fork-attack", "--seed", "1",
+                               "--json", "--device", "cpu"])
+    got = json.loads(out)
+    assert rc == 0 and got["invariants"]["ok"]
+    assert got["fingerprint"] == \
+        chip_smoke.CHAOS_EXPECT["fork-attack"][1]["fingerprint"]
+    assert got["fault_counts"]["fork_attack"] == 1
     path = tmp_path / "fork.json"
     path.write_text(json.dumps({**_MINI_FLAKY, "engine": "byzantine"}))
-    for argv in (["chaos", "run", "fork-attack", "--device", "cpu"],
-                 ["chaos", "run", str(path), "--live", "--device", "cpu"]):
-        with pytest.raises(SystemExit) as err:
-            pcli.main(argv)
-        assert "ROADMAP.md Queue 1, item 7" in str(err.value)
+    seen = {}
+
+    def live(sc, root, device="cuda"):
+        seen.update(engine=sc.engine, root=root, device=device)
+        return {"advanced": True}
+
+    monkeypatch.setattr(chaos, "run_live", live)
+    rc, _ = _out(pcli.main, ["chaos", "run", str(path), "--live", "--dir",
+                             str(tmp_path / "live"), "--device", "cpu"])
+    assert rc == 0
+    assert seen == dict(engine="byzantine", root=str(tmp_path / "live"),
+                        device="cpu")
 
 
 # ----------------------------------------------------------------------
@@ -231,7 +255,8 @@ def test_three_process_testnet_under_a_partition_plan(tmp_path):
 
 def test_testnet_knobs_give_the_jax_node_arguments(tmp_path):
     kw = dict(heartbeat_ms=20, tcp_timeout_ms=1500, joiners=1,
-              checkpoints=True, wal=True, extra_node_args=["--chaos_plan", "p.json"])
+              checkpoints=True, wal=True, byzantine=True,
+              extra_node_args=["--chaos_plan", "p.json"])
     port = tn.TestnetRunner(str(tmp_path / "p"), 3, device="cpu", **kw)
     jax = jtn.TestnetRunner(str(tmp_path / "j"), 3, **kw)
     for i in range(4):

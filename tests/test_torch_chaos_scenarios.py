@@ -10,11 +10,12 @@ must hold.  The minis are the JAX package's own scenarios
 spread over this file, ``test_torch_chaos_recovery.py``,
 ``test_torch_chaos_eviction.py`` and ``test_torch_chaos_membership.py``
 to keep each file's JAX compiles under a minute and a half; the full canned sweep at seeds 1 and 2 is the
-``slow`` tier, and on the card ``chip_smoke.py`` phase 10 holds it to
-``CHAOS_EXPECT``.
+``slow`` tier, and on the card ``chip_smoke.py`` phases 10 and 11(d)
+hold it to ``CHAOS_EXPECT``.
 
 ``python -m tests.test_torch_chaos_scenarios [--jobs N]`` runs the JAX
-package over phase 10's sweep on the CPU and prints ``CHAOS_EXPECT``.
+package over phase 10's and phase 11(d)'s sweeps on the CPU and prints
+``CHAOS_EXPECT``.
 """
 
 import pytest
@@ -102,10 +103,16 @@ def test_broken_fork_attack_fails_loudly_as_in_jax():
 
 
 def test_byzantine_scenarios_raise_naming_item_7():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        run_scenario(Scenario.from_dict(_MINI_FORK), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        run_scenario(load_scenario("fork-attack"), device="cpu")
+    """The JAX package's mini-fork (the byzantine engine, ROADMAP item 7,
+    which the port refused before it had that engine): a forked creator
+    planted at two honest nodes, detected by every honest node, with the
+    JAX package's fingerprint.  The name is the refusal test's that this
+    one replaced in place."""
+    jax, port = run_both(_MINI_FORK)
+    assert_parity(jax, port)
+    assert port.fork_attack == jax.fork_attack
+    assert port.fork_attack["injected"] and port.fault_counts["fork_attack"]
+    assert "fork_detected" in port.report.to_dict()["checked"]
 
 
 def test_the_runner_takes_the_card_by_default():
@@ -133,6 +140,9 @@ def test_flaky_link_seed_1_is_chip_smokes_expectation():
     import chip_smoke
 
     assert chip_smoke.CHAOS_SWEEP == sweep()
+    assert chip_smoke.CHAOS_BYZANTINE == byzantine_sweep()
+    assert set(chip_smoke.CHAOS_EXPECT) == set(
+        sweep() + ["mini-disk-rot"] + byzantine_sweep())
     assert chip_smoke.CHAOS_MINI_DISKROT == _MINI_DISKROT
     r = jrun_scenario(jload_scenario("flaky-link"), seed=1)
     assert chip_smoke.CHAOS_EXPECT["flaky-link"][1] == chaos_summary(r)
@@ -143,15 +153,21 @@ def test_flaky_link_seed_1_is_chip_smokes_expectation():
 
 
 def sweep() -> list:
-    """The canned scenarios the port runs: all but the byzantine
-    engine's (fork-attack, ROADMAP.md Queue 1 item 7)."""
+    """The canned scenarios of phase 10: all that run the fused engine."""
     return [name for name in jcanned_names()
             if jload_scenario(name).engine == "fused"]
 
 
+def byzantine_sweep() -> list:
+    """The canned scenarios of phase 11(d): the byzantine engine's
+    (fork-attack)."""
+    return [name for name in jcanned_names()
+            if jload_scenario(name).engine == "byzantine"]
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("seed", [1, 2])
-@pytest.mark.parametrize("name", sweep())
+@pytest.mark.parametrize("name", sweep() + byzantine_sweep())
 def test_canned_scenario_matches_jax(name, seed):
     import jax as jax_module
 
@@ -184,7 +200,8 @@ def chip_reference(jobs: int = 1):
     import multiprocessing
     import pprint
 
-    work = [(name, seed) for name in sweep() + ["mini-disk-rot"]
+    work = [(name, seed)
+            for name in sweep() + ["mini-disk-rot"] + byzantine_sweep()
             for seed in (1, 2)]
     expect: dict = {}
     with multiprocessing.get_context("spawn").Pool(jobs) as pool:

@@ -314,22 +314,32 @@ def test_tolerant_load_version_gate_and_other_engines(tmp_path):
     jeng, jerr = jck.load_checkpoint_tolerant(path)
     assert eng is None and jeng is None and err.startswith("ValueError")
     meta = codec.unpackb(raw)
+    # a fused meta tagged "byzantine" goes to the fork restore (ported
+    # with the byzantine engine, ROADMAP item 7), which refuses its
+    # version as the JAX package's does; "wide" is not ported (item 8)
     for version, mode, exc in ((7, None, ValueError), (1, None, ValueError),
-                               (6, "byzantine", NotImplementedError),
+                               (6, "byzantine", ValueError),
                                (6, "wide", NotImplementedError)):
         bad = dict(meta, version=version)
         if mode:
             bad["mode"] = mode
         with open(meta_path, "wb") as f:
             f.write(codec.packb(bad))
-        with pytest.raises(exc):
+        with pytest.raises(exc) as perr:
             pck.load_checkpoint(path, device=CPU)
+        if exc is ValueError:
+            with pytest.raises(ValueError) as jerr:
+                jck.load_checkpoint(path)
+            assert str(perr.value) == str(jerr.value)
     with pytest.raises(NotImplementedError, match="item 8"):
         pck.load_snapshot(codec.packb([codec.packb(dict(
             meta, mode="wide", n_blocks=2)), b""]), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pck.load_snapshot(codec.packb([codec.packb(dict(
-            meta, mode="byzantine")), b""]), device=CPU)
+    hostile = codec.packb([codec.packb(dict(meta, mode="byzantine")), b""])
+    with pytest.raises(KeyError) as jerr:
+        jck.load_snapshot(hostile)
+    with pytest.raises(KeyError) as perr:
+        pck.load_snapshot(hostile, device=CPU)
+    assert str(perr.value) == str(jerr.value)
     assert pck.engine_mode(pe) == "fused"
     with pytest.raises(NotImplementedError):
         pck.engine_mode(je)

@@ -10,8 +10,10 @@ CPU.
 - ``sim --device cpu`` prints JAX ``cli sim``'s ``ordered``,
   ``last_consensus_round`` and ``max_round`` on the same DAG;
 - the flags and verbs whose machinery is not ported raise naming their
-  ROADMAP.md item, and ``run`` without ``--device`` takes the card (so
-  it fails on a machine without one instead of falling back);
+  ROADMAP.md item, ``run``'s byzantine flags (``--byzantine``,
+  ``--fork_k``, ``--fork_caps``) reach the node's engine as the JAX cli
+  sets them, and ``run`` without ``--device`` takes the card (so it
+  fails on a machine without one instead of falling back);
 - ``run``'s ``--chaos_*`` flags are accepted and reach ``_chaos_wrap``;
 - three port node processes (``TestnetRunner(device="cpu")``) with dummy
   apps commit a few dozen transactions submitted over JSON-RPC, every
@@ -154,9 +156,6 @@ def test_sim_prints_the_jax_counts():
 
 
 NOT_PORTED = [
-    (["--byzantine"], "item 7"),
-    (["--fork_k", "3"], "item 7"),
-    (["--fork_caps", "4,4,4"], "item 7"),
     (["--engine", "wide"], "item 8"),
     (["--wide_caps", "4,4,4"], "item 8"),
 ]
@@ -173,6 +172,67 @@ def test_unported_run_flags_raise_naming_their_item(flags, item):
 
 class _Wrapped(Exception):
     pass
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--byzantine"], dict(byzantine=True, fork_k=2, fork_caps=None)),
+    (["--byzantine", "--fork_k", "3"],
+     dict(byzantine=True, fork_k=3, fork_caps=None)),
+    (["--byzantine", "--fork_caps", "4096,64,16"],
+     dict(byzantine=True, fork_k=2, fork_caps=(4096, 64, 16))),
+])
+def test_byzantine_run_flags_reach_the_node(tmp_path, monkeypatch, flags,
+                                            want):
+    """The byzantine run flags (ROADMAP item 7, refused before the port
+    had the engine): the node boots a ``ForkHashgraph`` with the budget
+    and capacities asked for, from the Config the JAX cli builds."""
+    from babble_tpu_torch.consensus.fork_engine import ForkHashgraph
+    from babble_tpu_torch.node import node as pnode
+
+    tn.build_conf(str(tmp_path), 2)
+    seen = {}
+
+    class Spy(pnode.Node):
+        def __init__(self, conf, *a, **k):
+            super().__init__(conf, *a, **k)
+            seen.update(conf=conf, hg=self.core.hg)
+            raise _Wrapped
+
+    monkeypatch.setattr(pnode, "Node", Spy)
+    with pytest.raises(_Wrapped):
+        pcli.main(["run", "--datadir", str(tmp_path / "node0"),
+                   "--no_client", "--node_addr", "127.0.0.1:0",
+                   "--device", "cpu"] + flags)
+    conf, hg = seen["conf"], seen["hg"]
+    assert {k: getattr(conf, k) for k in want} == want
+    assert isinstance(hg, ForkHashgraph) and hg.k == want["fork_k"]
+    assert hg._caps == (want["fork_caps"] or (0, 0, 0))
+    jargs = _jax_run_parser(monkeypatch).parse_args(
+        ["--datadir", "x"] + flags)
+    assert (jargs.byzantine, jargs.fork_k,
+            jcli._parse_fork_caps(jargs.fork_caps)) == \
+        (want["byzantine"], want["fork_k"], want["fork_caps"])
+    for bad in ("4,4", "a,b,c", "0,4,4"):
+        with pytest.raises(SystemExit) as perr:
+            pcli._parse_fork_caps(bad)
+        with pytest.raises(SystemExit) as jerr:
+            jcli._parse_fork_caps(bad)
+        assert str(perr.value) == str(jerr.value)
+
+
+def test_run_refuses_a_fork_k_the_card_kernel_lacks():
+    """``--fork_k`` past the fork_ss kernel's k on the card exits at the
+    flag, before the node boots; on the CPU the plain twin takes it."""
+    argv = ["run", "--datadir", "/nonexistent", "--byzantine", "--fork_k",
+            "9"]
+    with pytest.raises(SystemExit) as err:
+        pcli.main(argv)
+    assert str(err.value) == ("--fork_k 9: the fork_ss kernel on cuda is "
+                              "built for k in [1, 8]")
+    args = pcli.build_parser().parse_args(argv + ["--device", "cpu"])
+    pcli.check_fork_k(args)
+    pcli.check_fork_k(pcli.build_parser().parse_args(argv[:3] + [
+        "--byzantine", "--fork_k", "8"]))
 
 
 @pytest.mark.parametrize("flags,attr,value", [
@@ -209,7 +269,6 @@ def test_chaos_run_flags_reach_chaos_wrap(tmp_path, monkeypatch, flags,
 @pytest.mark.parametrize("argv,item", [
     (["fleet", "watch", "--hosts", "h"], "item 5e"),
     (["lint", "--json", "x"], "item 5e"),
-    (["chaos", "run", "fork-attack"], "item 7"),
     (["testnet", "health"], "item 5e"),
     (["testnet", "trace", "ab"], "item 5e"),
 ])

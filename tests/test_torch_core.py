@@ -36,7 +36,7 @@ from babble_tpu.wal import WriteAheadLog as JWal
 from babble_tpu_torch.crypto import keys as pkeys
 from babble_tpu_torch.net import commands as pcmd
 from babble_tpu_torch.node.core import Core as PCore
-from babble_tpu_torch.node.core import NOT_PORTED_BYZANTINE, NOT_PORTED_WIDE
+from babble_tpu_torch.node.core import NOT_PORTED_WIDE
 from babble_tpu_torch.sim.replay import (
     LogicalClock, replay_scalars, sync_schedule,
 )
@@ -176,13 +176,23 @@ def test_schedule_and_scalars_are_stable():
 
 
 def test_core_refuses_the_unported_engines():
+    """The wide engine (item 8) and a foreign engine are refused; the
+    byzantine engine (item 7) is built, as the JAX Core builds it."""
+    from babble_tpu_torch.consensus.fork_engine import ForkHashgraph
+
     k = pkeys.key_from_scalar(11)
     parts = {k.pub_hex: 0}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PCore(0, k, parts, byzantine=True, device=CPU)
+    core = PCore(0, k, parts, byzantine=True, fork_k=3, cache_size=64,
+                 fork_caps=(128, 16, 8), device=CPU)
+    jcore = JCore(0, jkeys.key_from_scalar(11), parts, byzantine=True,
+                  fork_k=3, cache_size=64, fork_caps=(128, 16, 8))
+    assert isinstance(core.hg, ForkHashgraph) and core.byzantine
+    for name in ("k", "verify_signatures", "auto_compact", "seq_window",
+                 "compact_min", "round_margin", "_caps"):
+        assert getattr(core.hg, name) == getattr(jcore.hg, name), name
     with pytest.raises(NotImplementedError, match="item 8"):
         PCore(0, k, parts, wide=True, device=CPU)
-    assert "ROADMAP.md" in NOT_PORTED_BYZANTINE + NOT_PORTED_WIDE
+    assert "ROADMAP.md" in NOT_PORTED_WIDE
 
     class Stranger:
         participants = parts

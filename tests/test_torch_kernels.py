@@ -245,3 +245,74 @@ def test_churn_with_checkpoint_on_card_matches_cpu(tmp_path):
     assert out[:3] == ref[:3]
     for a, b in zip(ref[3], out[3]):
         assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------
+# fork_ss: the fork strongly-see compare-count (csrc/fork_ss.cu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,x,w,n,k", [(1, 1000, 77, 37, 2), (3, 130, 64, 9, 3),
+                                       (2, 64, 200, 1025, 2),
+                                       (1, 65, 63, 9, 8), (4, 1, 1, 1, 1)])
+def test_fork_ss_kernel_matches_plain(g, x, w, n, k):
+    _need_card()
+    from babble_tpu_torch.ops.forks import ss_counts, ss_counts_plain
+
+    gen = torch.Generator().manual_seed(x + w)
+    la = torch.randint(-1, 40, (g, x, n * k), generator=gen,
+                       dtype=torch.int32).cuda()
+    hw = torch.randint(0, 45, (g, w, n * k), generator=gen,
+                       dtype=torch.int32)
+    hw[hw >= 40] = 2**31 - 1
+    hw = hw.cuda()
+    det = (torch.rand((g, x, n), generator=gen) < 0.2).cuda()
+    before = ss_counts.launches
+    got = ss_counts(la, det, hw, k)
+    torch.cuda.synchronize()
+    assert ss_counts.launches == before + 1
+    assert torch.equal(got, ss_counts_plain(la, det, hw, k))
+    assert torch.equal(got.cpu(), ss_counts(la.cpu(), det.cpu(), hw.cpu(), k))
+
+
+@pytest.mark.gpu
+def test_fork_pipeline_on_card_matches_cpu():
+    """A small byzantine DAG through the whole fork pipeline on the card
+    (fork_ss launched) and on the CPU (the plain twin): every field."""
+    _need_card()
+    from babble_tpu_torch.ops import forks as F
+    from babble_tpu_torch.sim.arrays import random_byzantine_fork_arrays
+
+    cfg, arrays = random_byzantine_fork_arrays(32, 2048, seed=11,
+                                               fork_rate=0.02)
+    before = F.ss_counts.launches
+    out = F.fork_pipeline(cfg, F.fork_batch_from_numpy(arrays, "cuda"))
+    ref = F.fork_pipeline(cfg, F.fork_batch_from_numpy(arrays, "cpu"))
+    assert F.ss_counts.launches > before
+    for name in F.ForkOut._fields:
+        assert torch.equal(getattr(out, name).cpu(), getattr(ref, name)), name
+
+
+@pytest.mark.gpu
+def test_fork_ss_rejects_what_it_does_not_take():
+    _need_card()
+    from babble_tpu_torch.ops.forks import ss_counts
+
+    la = torch.zeros((1, 4, 6), dtype=torch.int32, device="cuda")
+    det = torch.zeros((1, 4, 3), dtype=torch.bool, device="cuda")
+    hw = torch.zeros((1, 5, 6), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        ss_counts(la, det.cpu(), hw, 2)
+    with pytest.raises(ValueError):
+        ss_counts(la, det, hw, 3)
+    with pytest.raises(ValueError):
+        ss_counts(la.float(), det, hw, 2)
+    # k = 9: the kernel is built for k up to 8; the CPU twin takes it
+    la9 = torch.zeros((1, 4, 18), dtype=torch.int32, device="cuda")
+    det9 = torch.zeros((1, 4, 2), dtype=torch.bool, device="cuda")
+    hw9 = torch.zeros((1, 5, 18), dtype=torch.int32, device="cuda")
+    before = ss_counts.launches
+    with pytest.raises(ValueError, match=r"k in \[1, 8\]"):
+        ss_counts(la9, det9, hw9, 9)
+    assert ss_counts.launches == before
+    assert ss_counts(la9.cpu(), det9.cpu(), hw9.cpu(), 9).shape == (1, 4, 5)
