@@ -13,7 +13,11 @@ latency/throughput dispatch, compaction, commit order and digest, and
 the membership plane's join/leave epoch transitions), the fork-aware
 byzantine pair (``ops/forks.py`` with its hand-written strongly-see
 compare-count ``csrc/fork_ss.cu``, ``consensus/fork_engine.py
-ForkHashgraph`` and the ``ForkOracle``), with its
+ForkHashgraph`` and the ``ForkOracle``), the column-blocked wide-N
+pipeline and its rolling-window stream (``ops/wide.py``,
+``ops/stream.py stream_consensus``, with the hand-written blocked
+strongly-see count ``csrc/ss_count.cu``) and the live engine over it
+(``consensus/wide_engine.py WideHashgraph``), with its
 checkpoints and fast-forward snapshots (``store/``: the JAX package's
 FORMAT v6 bytes, restorable across the packages) and the crypto and
 msgpack they stand on (``crypto/``, ``codec.py``), and the node runtime
@@ -42,10 +46,16 @@ Entry points take an explicit ``device`` ("cuda" by default); pass
     committed = eng.run_consensus()
     save_checkpoint(eng, "ckpt")
     eng = load_checkpoint("ckpt")
+
+    wide = DagConfig(n=24, e_cap=1400, s_cap=110, r_cap=16, coord8=True)
+    stream = stream_consensus(wide, random_gossip_arrays(24, 2800, seed=13),
+                              batch_events=350, n_blocks=3, seq_window=16,
+                              compact_min=64)
 """
 
 from .consensus.engine import TorchHashgraph
 from .consensus.fork_engine import ForkHashgraph
+from .consensus.wide_engine import WideHashgraph
 from .ops.ingest import EventBatch
 from .ops.state import (
     DagConfig, DagState, assert_consensus_parity, init_state,
@@ -58,6 +68,8 @@ from .sim.arrays import (
 from .sim.generator import (
     random_byzantine_dag, random_churn_dag, random_gossip_dag,
 )
+from .ops.stream import WideStream, stream_consensus
+from .ops.wide import run_wide_pipeline
 from .sim.live import live_stream
 from .step import consensus_step
 from .store.checkpoint import (
@@ -66,11 +78,12 @@ from .store.checkpoint import (
 
 __all__ = [
     "ArrayDag", "DagConfig", "DagState", "EventBatch", "ForkHashgraph",
-    "TorchHashgraph",
+    "TorchHashgraph", "WideHashgraph", "WideStream",
     "assert_consensus_parity", "batch_from_arrays", "consensus_step",
     "events_from_arrays", "init_state", "live_stream", "load_checkpoint",
     "load_snapshot", "random_byzantine_dag", "random_byzantine_fork_batch",
     "random_churn_dag", "random_gossip_arrays",
-    "random_gossip_dag", "save_checkpoint", "snapshot_bytes",
-    "state_from_numpy", "state_to_numpy",
+    "random_gossip_dag", "run_wide_pipeline", "save_checkpoint",
+    "snapshot_bytes", "state_from_numpy", "state_to_numpy",
+    "stream_consensus",
 ]

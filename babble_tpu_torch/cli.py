@@ -15,10 +15,8 @@
 
 The flags and defaults are the JAX package's, plus ``--device`` (the
 card by default; ``--device cpu`` runs every stage in plain torch on the
-CPU).  The port has no XLA cache, so no ``--jax_cache``.  Flags that ask
-for machinery the port does not have yet (the wide engine) raise
-``SystemExit`` naming its ROADMAP.md item instead of being ignored, and
-so do the verbs still to port.
+CPU).  The port has no XLA cache, so no ``--jax_cache``.  The verbs
+still to port raise ``SystemExit`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -29,7 +27,6 @@ import json
 import sys
 import time
 
-from .node.core import NOT_PORTED_WIDE
 from .ops.forks import FORK_SS_MAX_K
 
 NOT_PORTED_FLEET = (
@@ -47,23 +44,6 @@ NOT_PORTED_VERBS = {
     ("testnet", "trace"): NOT_PORTED_FLEET.format(
         what="testnet trace (fleet.py trace_tx)"),
 }
-
-
-#: (args attribute, default, flag, reason) of every ``run`` flag whose
-#: machinery the port lacks: any value but the default raises
-NOT_PORTED_FLAGS = (
-    ("engine", "fused", "--engine", NOT_PORTED_WIDE),
-    ("wide_caps", "", "--wide_caps", NOT_PORTED_WIDE),
-)
-
-
-def refuse_not_ported(args) -> None:
-    """Raise ``SystemExit`` for the first ``run`` flag set to ask for
-    machinery the port lacks."""
-    for attr, default, flag, reason in NOT_PORTED_FLAGS:
-        value = getattr(args, attr)
-        if value != default:
-            raise SystemExit(f"{flag} {value}: {reason}")
 
 
 def check_fork_k(args) -> None:
@@ -177,8 +157,6 @@ async def _run_node(args) -> int:
     if engine is not None:
         from .store.checkpoint import engine_mode
 
-        # --engine wide was refused above, and engine_mode raises for
-        # any kind the port does not have
         mode = engine_mode(engine)
         want = "byzantine" if args.byzantine else args.engine
         if mode != want:
@@ -192,6 +170,18 @@ async def _run_node(args) -> int:
                 # the checkpoint carries no capacity hints: re-apply the
                 # pre-sizing or every resume grows its capacities anew
                 engine.pre_size(caps)
+        elif mode == "wide":
+            want_caps = _parse_fork_caps(args.wide_caps, flag="--wide_caps")
+            have = (engine.cfg.e_cap, engine.cfg.s_cap, engine.cfg.r_cap)
+            if want_caps and tuple(want_caps) != have:
+                # wide capacities are fixed at boot; the checkpoint's
+                # shapes win on resume — say so
+                print(
+                    f"warning: --wide_caps {want_caps} ignored — the "
+                    f"resumed checkpoint's window capacities are {have} "
+                    "and cannot change post-boot",
+                    file=sys.stderr,
+                )
         n_ev = (len(engine.dag.events) if mode == "byzantine"
                 else engine.dag.n_events)
         print(f"resumed from checkpoint {ckpt_dir}: "
@@ -224,6 +214,8 @@ async def _run_node(args) -> int:
         byzantine=args.byzantine,
         fork_k=args.fork_k,
         fork_caps=_parse_fork_caps(args.fork_caps),
+        engine=args.engine,
+        wide_caps=_parse_fork_caps(args.wide_caps, flag="--wide_caps"),
         wal_dir=args.wal_dir,
         wal_fsync=args.wal_fsync,
         kernel_class=args.kernel_class,
@@ -398,7 +390,6 @@ async def _checkpoint_loop(node, ckpt_dir: str, interval: float) -> None:
 
 
 def cmd_run(args) -> int:
-    refuse_not_ported(args)
     check_fork_k(args)
     try:
         return asyncio.run(_run_node(args))
@@ -697,11 +688,12 @@ def build_parser() -> argparse.ArgumentParser:
     rn.add_argument("--engine", default="fused",
                     choices=("fused", "wide"),
                     help="honest-mode engine: fused [E,N] coordinate "
-                         "tensors (the wide engine is not ported yet: "
-                         "ROADMAP item 8)")
+                         "tensors, or the column-blocked rolling-window "
+                         "wide engine (the 10k-participant layout)")
     rn.add_argument("--wide_caps", default="",
-                    help="wide-engine window capacities 'e,s,r' (not "
-                         "ported yet: ROADMAP item 8)")
+                    help="wide-engine window capacities 'e,s,r' "
+                         "(fixed at boot; the engine compacts instead "
+                         "of growing)")
     rn.add_argument("--seq_window", type=int, default=0,
                     help="per-creator rolling window (0 = cache_size)")
     rn.add_argument("--inactive_rounds", type=int, default=-1,

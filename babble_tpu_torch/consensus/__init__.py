@@ -1,7 +1,8 @@
 """The consensus engine (``engine.TorchHashgraph``), the fork-aware
 (byzantine-mode) pair (``byzantine.ForkOracle``, the definition-first
 oracle, and ``fork_engine.ForkHashgraph`` over ``ops/forks.py``), the
-final ordering (``ordering``) and the rolling commit digest
+wide-N live engine (``wide_engine.WideHashgraph`` over
+``ops/stream.py``), the final ordering (``ordering``) and the rolling commit digest
 (``digest``)."""
 
 from .byzantine import ByzantineInsertError, ForkOracle
@@ -9,8 +10,10 @@ from .digest import CommitDigest, fold
 from .engine import LATENCY_K_MAX, TorchHashgraph
 from .fork_engine import ForkHashgraph
 from .ordering import consensus_sort
+from .wide_engine import WideHashgraph
 
 __all__ = [
     "ByzantineInsertError", "CommitDigest", "ForkHashgraph", "ForkOracle",
-    "LATENCY_K_MAX", "TorchHashgraph", "consensus_sort", "fold",
+    "LATENCY_K_MAX", "TorchHashgraph", "WideHashgraph", "consensus_sort",
+    "fold",
 ]

@@ -108,6 +108,34 @@ def node_engine_kwargs(cache_size: int = 500) -> dict:
 
 
 class TorchHashgraph:
+    #: this engine has the latency/throughput split.  A subclass with
+    #: its own memory layout (``WideHashgraph``: blocked la/fd, no fused
+    #: coordinate tensors) sets this False and pins kernel_class as a
+    #: class attribute: it inherits run_consensus_timed but always takes
+    #: the three-phase branch through its own overrides.
+    KERNEL_SPLIT = True
+    # class-level defaults for subclasses that skip __init__ (the wide
+    # engine allocates its own state): the dispatcher, the node's
+    # metrics and the checkpoint meta read these
+    finality_gate = False
+    kernel_class = "throughput"
+    last_kernel_class: Optional[str] = None
+    flush_fallbacks = 0
+    frontier = True
+    _frontier_cache = 0
+    last_flush_bytes: Optional[dict] = None
+    phase_probe = False
+    _last_phase_timings: Optional[dict] = None
+    inactive_rounds: Optional[int] = None
+    _evicted_creators_cache = 0
+    epoch = 0
+    pending_membership: Optional[dict] = None
+    membership_log: tuple = ()
+    membership_rejects = 0
+    membership_queue: tuple = ()
+    membership_base_epoch = 0
+    membership_addrs: dict = {}
+
     def __init__(
         self,
         participants: Dict[str, int],
@@ -534,7 +562,7 @@ class TorchHashgraph:
         with record_function("babble_flush_order"):
             events = self.find_order()
         t3 = time.perf_counter()
-        if k_pending:
+        if type(self).KERNEL_SPLIT and k_pending:
             self.last_flush_bytes = flush_ops.throughput_bytes_estimate(
                 self.cfg, k_pending
             )

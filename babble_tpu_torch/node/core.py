@@ -7,10 +7,9 @@ self-event whose parents are (own head, peer head) carrying the pooled
 transactions.
 
 The port's copy of the JAX package's ``node/core.py`` over the fused
-engine or, with ``byzantine``, the fork-aware ``ForkHashgraph``; it
-builds either on ``device``.  The wide engine is not ported yet: asking
-for it raises ``NotImplementedError`` naming its ROADMAP.md item, and an
-injected engine must be a ``TorchHashgraph`` or a ``ForkHashgraph``.
+engine or, with ``byzantine``, the fork-aware ``ForkHashgraph``, or, with
+``wide``, the column-blocked ``WideHashgraph``; it builds each on
+``device``.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from ..common import TooLateError
 from ..consensus.engine import TorchHashgraph
 from ..consensus.fork_engine import ForkHashgraph
+from ..consensus.wide_engine import WideHashgraph
 from ..core.event import Event, WireEvent, new_event
 from ..crypto.keys import KeyPair
 from ..obs import Registry
@@ -28,12 +28,6 @@ from ..ops.forks import ParentUnknownError
 from ..quorum import sync_quorum
 from ..store.checkpoint import engine_mode
 from ..wal import WriteAheadLog
-
-NOT_PORTED_WIDE = (
-    "the wide engine (WideHashgraph) is not ported yet (ROADMAP.md "
-    "Queue 1, item 8: the wide-N engine)"
-)
-
 
 def _mark_chain_verified(events: List[Event]) -> None:
     """Signature elision over contiguous self-parent chains.
@@ -129,7 +123,6 @@ class Core:
             # a later epoch legitimately differs from the boot peer
             # list (membership plane), so the engine's epoch ledger
             # wins and observer status is recomputed against it.
-            # engine_mode raises for a kind the port does not have
             self.hg = engine
             byzantine = engine_mode(engine) == "byzantine"
             participants = engine.participants
@@ -155,7 +148,22 @@ class Core:
                 device=device,
             )
         elif wide:
-            raise NotImplementedError(NOT_PORTED_WIDE)
+            # column-blocked rolling-window engine (the wide-N memory
+            # layout) behind the same Core surface; capacities are a
+            # boot-time contract — the engine compacts instead of
+            # growing (consensus/wide_engine.py)
+            cs = cache_size or 4096
+            wc = wide_caps or (max(8 * cs, 4096), 256, 64)
+            self.hg = WideHashgraph(
+                participants, commit_callback=commit_callback,
+                e_cap=wc[0], s_cap=wc[1], r_cap=wc[2],
+                auto_compact=True,
+                seq_window=min(seq_window or cs, wc[1] // 2),
+                round_margin=1,
+                consensus_window=2 * cs,   # commit log bounded too
+                registry=registry,
+                device=device,
+            )
         else:
             # The live path runs with rolling windows on (auto_compact):
             # memory stays bounded and peers that fall behind the
@@ -182,6 +190,10 @@ class Core:
             )
         self.byzantine = byzantine
         self._apply_live_engine_policy()
+        if engine is not None:
+            # a checkpoint-restored engine was built before this node's
+            # registry existed: rebind its instruments
+            self._rebind_engine_registry()
         # tolerated insert failures (byzantine-mode per-event insert
         # failures, unconvertible wire events, merge skips): counted,
         # not raised — surfaced for stats/tests
@@ -462,10 +474,10 @@ class Core:
         the LIVE path, not of the DAG state) and this core's kernel-
         class pin.  Both are per-call static arguments on the compiled
         entries, so flipping the attributes is safe at any flush
-        boundary.  (The fused engine keeps no instruments of its own, so
-        an adopted engine needs no registry rebind; the fork engine has
-        none of these knobs.)"""
-        if not isinstance(self.hg, TorchHashgraph):
+        boundary.  The fork and wide engines have none of these
+        knobs."""
+        if not (isinstance(self.hg, TorchHashgraph)
+                and type(self.hg).KERNEL_SPLIT):
             return
         self.hg.finality_gate = True
         self.hg.kernel_class = self.kernel_class
@@ -477,6 +489,19 @@ class Core:
         self.hg.frontier = self.frontier
         if self.hg.cfg.packed != self.packed_votes:
             self.hg.cfg = self.hg.cfg._replace(packed=self.packed_votes)
+
+    def _rebind_engine_registry(self) -> None:
+        """Point the current engine's instruments at this core's
+        registry.  A bootstrap-restored or checkpoint-resumed engine was
+        built with a private registry (load_snapshot knows nothing of
+        the node); without this rebind its flush/stage histograms (the
+        wide engine's) keep observing into that orphan and the series
+        drop off /metrics after every fast-forward engine swap."""
+        if self.registry is None:
+            return
+        rebind = getattr(self.hg, "rebind_registry", None)
+        if rebind is not None:
+            rebind(self.registry)
 
     def bootstrap(self, engine) -> None:
         """Replace the consensus engine with a fast-forward snapshot (the
@@ -538,6 +563,7 @@ class Core:
             self.last_bootstrap_lost_txs = []
             self.refresh_quorums()
             self._apply_live_engine_policy()
+            self._rebind_engine_registry()
             self._note_ff_adopted()
             return
         cid = self.participants[self.pub_hex]
@@ -617,6 +643,7 @@ class Core:
         self.last_bootstrap_lost_txs = lost_txs
         self.refresh_quorums()
         self._apply_live_engine_policy()
+        self._rebind_engine_registry()
         self._note_ff_adopted()
 
     def _replay_continuation_tail(
@@ -725,6 +752,7 @@ class Core:
             self.seq = -1
             self.init()
         self._apply_live_engine_policy()
+        self._rebind_engine_registry()
 
     def _replay_own_tail(
         self, engine: TorchHashgraph, cid: int, snap_seq: int

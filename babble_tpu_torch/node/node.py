@@ -35,9 +35,10 @@ The port's copy of the JAX package's ``node/node.py``, over the port's
 ``Core`` and ``TorchHashgraph`` on ``Config.device``.  Consensus and sync
 work run in the default executor, as in the JAX package, so several
 nodes of one process may drive the card from worker threads.  With
-``Config.byzantine`` the ``Core`` runs the fork-aware ``ForkHashgraph``.
-Not ported yet: the wide engine (the ``Core`` raises), and the AOT
-prewarm (``Config.aot_dir`` raises, ROADMAP.md Queue 1, item 10).
+``Config.byzantine`` the ``Core`` runs the fork-aware ``ForkHashgraph``,
+and with ``Config.engine == "wide"`` the column-blocked
+``WideHashgraph``.  Not ported yet: the AOT prewarm (``Config.aot_dir``
+raises, ROADMAP.md Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -1606,7 +1607,6 @@ class Node:
                 raise ValueError(f"fast-forward membership chain: {err}")
         # engine KIND must match: a fused node must not adopt a fork
         # snapshot or the reverse — byzantine is its own world
-        # (engine_mode raises for the wide kind, not ported)
         if engine_mode(engine) != engine_mode(self.core.hg):
             raise ValueError(
                 f"fast-forward snapshot engine kind "
@@ -1902,6 +1902,21 @@ class Node:
                     # explicit: the restore falls back to the PEER's
                     # serialized value for missing/None entries, and a
                     # hostile round_margin would freeze our window
+                    "round_margin": 1,
+                }
+            elif engine_mode(self.core.hg) == "wide":
+                # mirror Core's wide boot knobs exactly (cs fallback
+                # included: the wide engine's fixed-memory contract
+                # needs a bounded commit log and active compaction
+                # whatever cache_size says); the restore path clamps
+                # seq_window to the snapshot's s_cap//2
+                cs_eff = cs or 4096
+                policy = {
+                    "verify_signatures": True,
+                    "auto_compact": True,
+                    "seq_window": self.conf.seq_window or cs_eff,
+                    "consensus_window": 2 * cs_eff,
+                    "compact_min": None,
                     "round_margin": 1,
                 }
             else:

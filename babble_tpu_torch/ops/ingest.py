@@ -59,16 +59,19 @@ def _iota(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, device=like.device)
 
 
-def _reset_coord_sentinels(state: DagState, cfg: DagConfig) -> DagState:
+def _reset_coord_sentinels(state: DagState, cfg: DagConfig,
+                           include_coords: bool = True) -> DagState:
     """Restore the sentinel row/col of everything the coords phase
     writes (batch fields, la/fd, chain tables): padding lanes dump their
-    writes there, and gathers of missing refs must stay neutral."""
+    writes there, and gathers of missing refs must stay neutral.
+    ``include_coords=False`` leaves la/fd alone (the wide engine holds
+    them as column blocks, outside the state)."""
     e, n, s = cfg.e_cap, cfg.n, cfg.s_cap
     e_row = _iota(e + 1, state.sp) == e        # [E+1]
     n_row = _iota(n + 1, state.sp) == n        # [N+1]
     s_col = _iota(s + 1, state.sp) == s        # [S+1]
     setv = set_sentinel
-    return state._replace(
+    state = state._replace(
         sp=setv(state.sp, e_row, -1),
         op=setv(state.op, e_row, -1),
         creator=setv(state.creator, e_row, n),
@@ -77,9 +80,13 @@ def _reset_coord_sentinels(state: DagState, cfg: DagConfig) -> DagState:
         mbit=setv(state.mbit, e_row, False),
         ce=setv(state.ce, n_row[:, None] | s_col[None, :], -1),
         cnt=setv(state.cnt, n_row, 0),
-        la=setv(state.la, e_row[:, None], -1),
-        fd=setv(state.fd, e_row[:, None], cfg.fd_inf),
     )
+    if include_coords:
+        state = state._replace(
+            la=setv(state.la, e_row[:, None], -1),
+            fd=setv(state.fd, e_row[:, None], cfg.fd_inf),
+        )
+    return state
 
 
 def _reset_round_sentinels(state: DagState, cfg: DagConfig) -> DagState:

@@ -18,10 +18,16 @@ package would: on a TPU, at wide n and shallow chains.  ``use_onehot``
 therefore returns False here, as JAX's does on every other backend, so
 the card runs the compare form, the one JAX itself takes off the TPU;
 the one-hot form is kept for parity with the JAX package.
+
+``ss_counts_acc`` is the wide engine's per-block partial
+(``ops/wide.py _ss_partial``): ``acc += compare count``, in place.  On
+CUDA tensors it launches the hand-written ``csrc/ss_count.cu``; on CPU
+tensors it runs ``ss_counts_compare``, its plain twin.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -109,3 +115,95 @@ def ss_counts(la_rows: torch.Tensor, fd_rows: torch.Tensor, s_cap: int,
     if batch_window and use_onehot(la_rows.shape[1], s_cap):
         return ss_counts_onehot(la_rows, fd_rows, s_cap)
     return ss_counts_compare(la_rows, fd_rows)
+
+
+#: coordinate types ``csrc/ss_count.cu`` is instantiated for
+SS_COUNT_DTYPES = (torch.int8, torch.int16, torch.int32)
+
+
+def ss_counts_acc(rows_a: torch.Tensor, rows_b: torch.Tensor,
+                  acc: torch.Tensor) -> torch.Tensor:
+    """``acc[a, b] += sum_k [rows_a[a, k] >= rows_b[b, k]]`` in place, and
+    returns ``acc`` (the JAX package donates ``acc`` to ``_ss_partial``
+    and rebinds the result; here the same tensor is updated).
+
+    ``rows_a`` is ``[A, w]`` and ``rows_b`` ``[B, w]`` in one coordinate
+    type (int8, int16 or int32, compared signed), or both stacked
+    ``[C, A, w]`` / ``[C, B, w]``, whose counts are summed over the C
+    blocks.  Rows may be strided; columns must be contiguous.  ``acc``
+    is int32 ``[A, B]``, contiguous.  On CUDA tensors this launches
+    ``csrc/ss_count.cu`` on the current stream, counted in
+    ``ss_counts_acc.launches``, or raises; on CPU tensors it adds
+    ``ss_counts_compare``, the plain twin."""
+    _check_acc_args(rows_a, rows_b, acc)
+    if rows_a.device.type == "cpu":
+        if rows_a.dim() == 2:
+            acc += ss_counts_compare(rows_a, rows_b)
+        else:
+            for c in range(rows_a.shape[0]):
+                acc += ss_counts_compare(rows_a[c], rows_b[c])
+        return acc
+    return _launch_ss_count(rows_a, rows_b, acc)
+
+
+ss_counts_acc.launches = 0
+
+
+def _check_acc_args(rows_a, rows_b, acc):
+    if rows_a.dim() != rows_b.dim() or rows_a.dim() not in (2, 3):
+        raise ValueError("ss_counts_acc: rows_a and rows_b must both be "
+                         "[rows, w] or both [C, rows, w]")
+    if rows_a.dim() == 3 and rows_a.shape[0] != rows_b.shape[0]:
+        raise ValueError(f"ss_counts_acc: block counts {rows_a.shape[0]} "
+                         f"and {rows_b.shape[0]} differ")
+    if rows_a.shape[-1] != rows_b.shape[-1]:
+        raise ValueError(f"ss_counts_acc: widths {rows_a.shape[-1]} and "
+                         f"{rows_b.shape[-1]} differ")
+    if rows_a.dtype != rows_b.dtype or rows_a.dtype not in SS_COUNT_DTYPES:
+        raise ValueError(f"ss_counts_acc: rows must share one type of "
+                         f"{SS_COUNT_DTYPES}, got {rows_a.dtype} and "
+                         f"{rows_b.dtype}")
+    want = (rows_a.shape[-2], rows_b.shape[-2])
+    if acc.dtype != I32 or tuple(acc.shape) != want:
+        raise ValueError(f"ss_counts_acc: acc must be int32 {list(want)}, "
+                         f"got {acc.dtype} {list(acc.shape)}")
+    if rows_b.device != rows_a.device or acc.device != rows_a.device:
+        raise ValueError("ss_counts_acc: tensors on different devices")
+
+
+def _ss_count_lib() -> ctypes.CDLL:
+    """The built ``csrc/ss_count.cu``, its C function declared."""
+    from .. import cuda_build
+
+    lib = cuda_build.load("ss_count")
+    lib.ss_count_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    lib.ss_count_launch.restype = ctypes.c_int
+    return lib
+
+
+def _launch_ss_count(rows_a, rows_b, acc):
+    dev = rows_a.device
+    if dev.type != "cuda":
+        raise ValueError(f"ss_count: the kernel needs CUDA tensors, got {dev}")
+    if rows_a.stride(-1) != 1 or rows_b.stride(-1) != 1:
+        raise ValueError("ss_count: row columns must be contiguous")
+    if not acc.is_contiguous():
+        raise ValueError("ss_count: acc must be contiguous")
+    a3 = rows_a if rows_a.dim() == 3 else rows_a[None]
+    b3 = rows_b if rows_b.dim() == 3 else rows_b[None]
+    g, na, w = a3.shape
+    nb = b3.shape[1]
+    if acc.numel() == 0 or w == 0 or g == 0:
+        return acc
+    fn = _ss_count_lib().ss_count_launch
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(a3.data_ptr(), b3.data_ptr(), acc.data_ptr(), na, nb, w, g,
+                a3.stride(1), b3.stride(1), a3.stride(0), b3.stride(0),
+                a3.element_size(), stream)
+    if rc != 0:
+        raise RuntimeError(f"ss_count: kernel launch failed, cudaError_t {rc}")
+    ss_counts_acc.launches += 1
+    return acc

@@ -21,9 +21,11 @@ against hostile input before any array is materialised.
 Byzantine (``ForkHashgraph``) checkpoints are host state only (the fork
 pipeline rebuilds its tensors from the window every run): the meta
 alone, the JAX package's fork FORMAT 1 bytes, with no npz.  Wide
-(``WideHashgraph``) checkpoints wait for their engine (ROADMAP.md Queue
-1, item 8).  Entry points restore onto ``device`` ("cuda" unless the
-caller asks for the CPU).
+(``WideHashgraph``) checkpoints add the stream's block layout to the
+meta (``mode``, ``n_blocks``, ``has_carry``) and the stacked la/fd
+blocks and the march carry to the npz, as in JAX; they restore stacked.
+Entry points restore onto ``device`` ("cuda" unless the caller asks for
+the CPU).
 """
 
 from __future__ import annotations
@@ -35,12 +37,14 @@ import tempfile
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from ..codec import packb, unpack_pair, unpackb
 from ..common import OffsetList
 from ..consensus.digest import CommitDigest
 from ..consensus.engine import MEMBERSHIP_QUEUE_MAX, TorchHashgraph
 from ..consensus.fork_engine import ForkHashgraph
+from ..consensus.wide_engine import WideHashgraph
 from ..core.event import Event, FullWireEvent
 from ..membership.epoch import MAX_LOG, check_log_entry
 from ..membership.transition import parse_membership_tx
@@ -48,6 +52,7 @@ from ..ops.state import (
     DagConfig, DagState, config_from_fields, coord8_ok, coord16_ok,
     repack_round_bits_np, state_from_numpy, state_to_numpy,
 )
+from ..ops.wide import MarchCarry
 
 #: v4 added the membership plane (cfg ``retired``, the ``sm`` array, the
 #: epoch ledger), v5 the ``packed`` cfg flag and the ``mbr``/``fmr``
@@ -59,10 +64,6 @@ _READABLE = (2, 3, 4, 5, FORMAT_VERSION)
 _META = "meta.msgpack"
 _DEVICE = "device.npz"
 
-NOT_PORTED_WIDE = (
-    "wide (WideHashgraph) checkpoints are not ported yet (ROADMAP.md "
-    "Queue 1, item 8: the wide-N engine)"
-)
 
 
 def _pack_event(ev: Event) -> list:
@@ -169,31 +170,68 @@ def _build_arrays(engine: TorchHashgraph) -> Dict[str, np.ndarray]:
 
 
 def engine_mode(engine) -> str:
-    """Checkpoint dispatch key: "byzantine" (``ForkHashgraph``) or
-    "fused" (``TorchHashgraph``).  Public — node/cli use it to match
-    checkpoints and fast-forward snapshots to the engine kind actually
-    running.  Raises for any other engine (the wide engine is not
-    ported)."""
+    """Checkpoint dispatch key: "byzantine" (``ForkHashgraph``), "wide"
+    (``WideHashgraph``) or "fused" (``TorchHashgraph``).  Public —
+    node/cli use it to match checkpoints and fast-forward snapshots to
+    the engine kind actually running.  Raises for any other object."""
     if isinstance(engine, ForkHashgraph):
         return "byzantine"
+    if isinstance(engine, WideHashgraph):
+        return "wide"
     if isinstance(engine, TorchHashgraph):
         return "fused"
     raise NotImplementedError(
-        f"no checkpoint for {type(engine).__name__}: {NOT_PORTED_WIDE}"
-    )
+        f"no checkpoint for {type(engine).__name__}")
+
+
+def _build_wide_meta(engine: WideHashgraph, anchors=None) -> dict:
+    """WideHashgraph checkpoint meta: the honest meta plus the stream's
+    block layout.  The blocked la/fd are not re-derivable from the live
+    window (entries learned from evicted ancestors survive in the
+    rows), so they are first-class checkpoint state."""
+    meta = _build_meta(engine, anchors)
+    meta["mode"] = "wide"
+    meta["n_blocks"] = engine.stream.C
+    meta["has_carry"] = engine.stream.carry is not None
+    return meta
+
+
+def _build_wide_arrays(engine: WideHashgraph) -> Dict[str, np.ndarray]:
+    """Host copies of the state (without la/fd), the blocks stacked
+    [C, E+1, w] and the march carry, in the JAX package's order."""
+    st = engine.stream
+    arrays = {name: a for name, a in state_to_numpy(engine.state)
+              ._asdict().items() if name not in ("la", "fd")}
+    la, fd = st.la_blocks, st.fd_blocks
+    if isinstance(la, (tuple, list)):
+        la, fd = torch.stack(list(la)), torch.stack(list(fd))
+    arrays["la_blocks"] = la.detach().cpu().numpy().copy()
+    arrays["fd_blocks"] = fd.detach().cpu().numpy().copy()
+    if st.carry is not None:
+        arrays["carry_pos_table"] = st.carry.pos_table.cpu().numpy().copy()
+        arrays["carry_cnt_prev"] = st.carry.cnt_prev.cpu().numpy().copy()
+    return arrays
+
+
+def _meta_and_arrays(engine, anchors=None):
+    """Flush, then the (meta, npz arrays) pair of a fused or wide
+    engine."""
+    engine.flush()
+    if engine_mode(engine) == "wide":
+        return _build_wide_meta(engine, anchors), _build_wide_arrays(engine)
+    return _build_meta(engine, anchors), _build_arrays(engine)
 
 
 def save_checkpoint(engine, path: str, anchors=None) -> None:
     """Write a consistent snapshot of ``engine`` to directory ``path``
     (every inserted event flushed first).  ``anchors`` is the node's
     attestation anchor ring (v6 meta); engine-only callers omit it.
-    Byzantine checkpoints are the host meta alone."""
+    Byzantine checkpoints are the host meta alone; wide ones add the
+    blocked coordinates to the npz."""
     if engine_mode(engine) == "byzantine":
         meta, arrays = _build_fork_meta(engine), None
     else:
-        engine.flush()
-        meta = _build_meta(engine, anchors)
-        arrays = _build_arrays(engine)
+        meta, arrays = _meta_and_arrays(engine, anchors)
     tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(path)) or ".")
     try:
         with open(os.path.join(tmp, _META), "wb") as f:
@@ -218,8 +256,7 @@ def snapshot_bytes(engine) -> bytes:
     byzantine engines have no device payload, so the npz is empty)."""
     if engine_mode(engine) == "byzantine":
         return packb([packb(_build_fork_meta(engine)), b""])
-    engine.flush()
-    meta, arrays = _build_meta(engine), _build_arrays(engine)
+    meta, arrays = _meta_and_arrays(engine)
     buf = io.BytesIO()
     np.savez_compressed(buf, **arrays)
     return packb([packb(meta), buf.getvalue()])
@@ -849,6 +886,25 @@ def _expected_layout(cfg: DagConfig) -> Dict[str, tuple]:
     }
 
 
+def _expected_wide_layout(cfg: DagConfig, C: int,
+                          has_carry: bool) -> Dict[str, tuple]:
+    """(shape, dtype) expectations for a wide checkpoint: the fused
+    layout minus la/fd plus the stacked blocks (+ march carry)."""
+    if not (1 <= C <= 1 << 16):
+        raise ValueError(f"snapshot block count {C} out of bounds")
+    exp = dict(_expected_layout(cfg))
+    cd = exp["la"][1]
+    del exp["la"], exp["fd"]
+    w = -(-cfg.n // C)
+    exp["la_blocks"] = ((C, cfg.e_cap + 1, w), cd)
+    exp["fd_blocks"] = ((C, cfg.e_cap + 1, w), cd)
+    if has_carry:
+        i32 = np.dtype(np.int32)
+        exp["carry_pos_table"] = ((cfg.r_cap + 1, cfg.n), i32)
+        exp["carry_cnt_prev"] = ((cfg.n,), i32)
+    return exp
+
+
 def _peek_npz_layout(z) -> Dict[str, tuple]:
     """Read each member's (shape, dtype) from its npy header WITHOUT
     decompressing the payload — a zlib-bombed snapshot must be rejected
@@ -909,14 +965,18 @@ def load_snapshot(
                     )
         return engine
     _check_host_meta(meta)
-    if meta.get("mode") == "wide":
-        raise NotImplementedError(NOT_PORTED_WIDE)
     cfg = config_from_fields(meta["cfg"])
     if max_caps is not None:
         max_e, max_s, max_r = max_caps
         if cfg.e_cap > max_e or cfg.s_cap > max_s or cfg.r_cap > max_r:
             raise ValueError(f"snapshot capacities out of bounds: {cfg}")
-    expected = _expected_layout(cfg)
+    wide = meta.get("mode") == "wide"
+    if wide:
+        expected = _expected_wide_layout(
+            cfg, int(meta["n_blocks"]), bool(meta.get("has_carry"))
+        )
+    else:
+        expected = _expected_layout(cfg)
     with np.load(io.BytesIO(npz_b)) as z:
         layout = _peek_npz_layout(z)
         for name in expected:
@@ -938,7 +998,12 @@ def load_snapshot(
         arrays = {name: z[name] for name in expected if name in layout}
     _backfill_sm(arrays, cfg)
     _backfill_packed(arrays, cfg)
-    engine = _restore_engine(meta, arrays, commit_callback, policy, device)
+    if wide:
+        engine = _restore_wide_engine(meta, arrays, commit_callback, policy,
+                                      device)
+    else:
+        engine = _restore_engine(meta, arrays, commit_callback, policy,
+                                 device)
     if verify_events:
         for ev in engine.dag.events:
             if not ev.verify():
@@ -987,15 +1052,23 @@ def load_checkpoint(
     commit_callback: Optional[Callable] = None,
     device="cuda",
 ):
-    """Reconstruct an engine (fused or byzantine) from a checkpoint
-    directory on ``device``."""
+    """Reconstruct an engine (fused, wide or byzantine) from a
+    checkpoint directory on ``device``."""
     with open(os.path.join(path, _META), "rb") as f:
         meta = unpackb(f.read(), strict_map_key=False)
     if meta.get("mode") == "byzantine":
         return _restore_fork_engine(meta, commit_callback, device=device)
-    if meta.get("mode") == "wide":
-        raise NotImplementedError(NOT_PORTED_WIDE)
     cfg = config_from_fields(meta["cfg"])
+    if meta.get("mode") == "wide":
+        names = _expected_wide_layout(
+            cfg, int(meta["n_blocks"]), bool(meta.get("has_carry"))
+        )
+        with np.load(os.path.join(path, _DEVICE)) as z:
+            arrays = {name: z[name] for name in names if name in z.files}
+        _backfill_sm(arrays, cfg)
+        _backfill_packed(arrays, cfg)
+        return _restore_wide_engine(meta, arrays, commit_callback,
+                                    device=device)
     with np.load(os.path.join(path, _DEVICE)) as z:
         arrays = {name: z[name]
                   for name in DagState._fields if name in z.files}
@@ -1137,3 +1210,76 @@ def _restore_host(engine, meta: dict) -> None:
                   for p, r, s in a[3]]}
         for a in meta.get("anchors", [])
     ]
+
+
+def _restore_wide_engine(
+    meta: dict,
+    arrays: Dict[str, np.ndarray],
+    commit_callback: Optional[Callable] = None,
+    policy: Optional[dict] = None,
+    device="cuda",
+) -> WideHashgraph:
+    """Reconstruct a WideHashgraph on ``device``: host window + blocked
+    coordinate tensors + march carry.  Restored blocks come back STACKED
+    [C, E+1, w], as in JAX; the programs take either form."""
+    if meta["version"] not in _READABLE:
+        raise ValueError(f"unsupported checkpoint version {meta['version']}")
+    policy = policy or {}
+    participants: Dict[str, int] = {
+        k: int(v) for k, v in meta["participants"]
+    }
+    cfg = config_from_fields(meta["cfg"])
+    auto_compact, seq_window, round_margin, compact_min, cons_window = (
+        meta["policy"][:5]
+    )
+    # the in-window chain depth must stay under s_cap: clamp whatever
+    # seq_window the policy/snapshot produced, like Core's boot path
+    sw = min(_pol(policy, "seq_window", seq_window),
+             max(1, cfg.s_cap // 2))
+    engine = WideHashgraph(
+        participants,
+        commit_callback=commit_callback,
+        verify_signatures=_pol(
+            policy, "verify_signatures", meta["verify_signatures"]
+        ),
+        e_cap=cfg.e_cap, s_cap=cfg.s_cap, r_cap=cfg.r_cap,
+        n_blocks=int(meta["n_blocks"]),
+        auto_compact=_pol(policy, "auto_compact", auto_compact),
+        seq_window=sw,
+        round_margin=_pol(policy, "round_margin", round_margin),
+        compact_min=_pol(policy, "compact_min", compact_min),
+        consensus_window=_pol(policy, "consensus_window", cons_window),
+        coord8=cfg.coord8,
+        device=device,
+    )
+    engine.cfg = cfg
+    engine.stream.cfg = cfg
+    _restore_host(engine, meta)
+
+    def put(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    st = engine.stream
+    engine.state = state_from_numpy(cfg, DagState(
+        la=None, fd=None,
+        **{name: arrays[name]
+           for name in DagState._fields if name not in ("la", "fd")},
+    ), device=device)
+    st.state = engine.state
+    st.la_blocks = put(arrays["la_blocks"])
+    st.fd_blocks = put(arrays["fd_blocks"])
+    if meta.get("has_carry"):
+        st.carry = MarchCarry(put(arrays["carry_pos_table"]),
+                              put(arrays["carry_cnt_prev"]))
+    base = meta["slot_base"]
+    st.e_off = base
+    st.evicted = base
+    st.lcr = int(arrays["lcr"])
+    st.ordered_total = meta["ordered_total"]
+    ne = engine.dag.n_events - base
+    rr = np.asarray(arrays["rr"])[:ne]
+    st._rr_seen[:] = False
+    st._rr_seen[:ne] = rr >= 0
+    engine._r_off = int(arrays["r_off"])
+    engine._lcr_cache = int(arrays["lcr"])
+    return engine

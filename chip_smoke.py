@@ -10,8 +10,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 1. device — print the card's name and power limit (nvidia-smi); no CUDA
    device is a failure.
 2. build  — compile every kernel of the main paths from ``csrc/``
-   (``la_walk.cu`` and ``fork_ss.cu``, one nvcc per source, all started
-   together) and print ``-Xptxas -v``, then la_walk's registers and
+   (``la_walk.cu``, ``fork_ss.cu`` and ``ss_count.cu``, one nvcc per
+   source, all started together) and print ``-Xptxas -v``, then la_walk's registers and
    shared memory as the runtime sees them (static staging plus the
    dynamic int16 column).
 3. kernel — each kernel's wrapper on the card against its plain torch
@@ -218,6 +218,31 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    **BYZ_ENGINE)`` equal to the JAX engine's commits
    (``BYZ_ENGINE_EXPECT``) and a checkpoint save and load of it,
    digests equal.
+12. wide — the wide-N engine (``ops/wide.py``, ``ops/stream.py``, its
+   kernel ``csrc/ss_count.cu``, ``WideHashgraph``, ``Core(wide=True)``).
+   (a) ss_count against its plain twin ``ss_counts_compare``, exact,
+   from a non-zero tally, at int8, int16 and int32 with ragged rows and
+   columns, the -1 and fd_inf sentinels and a stacked pair, and at
+   bench's config-5 block (10,000 x 10,000 x 1,667 int8) timed.  (b)
+   BASELINE config 3 through ``run_wide_pipeline`` (1024 x 100,000,
+   int32, as bench.py's run_wide fallback runs it), first and warm, and
+   a 256 x 48,000 stream with compaction in 3 int8 blocks, both held to
+   the JAX package's summaries (``WIDE_EXPECT``, made on the CPU by
+   ``JAX_PLATFORMS=cpu python -m tests.test_torch_wide``).  (c)
+   BASELINE config 5 (``random_gossip_arrays(10_000, 1_000_000,
+   seed=7)``): bench's run_10k config pinned to refuse (its window
+   overflows before lcr reaches 1; in a window that holds the stream
+   int8 refuses the in-window depth), then the stream with int16
+   coordinates in a 1,000,000-event window (``WIDE10K_RUN``), every
+   event ingested, evicted > 0, bad rows 0, held to ``WIDE10K_EXPECT``
+   (this script's first reading); it prints events ordered, lcr,
+   rounds to fame, the phase split, peak memory, ss_count's launches,
+   its ms at the run's march shape and share of the wall.  (d) four
+   ``Core(wide=True)`` through a seeded replay and core 0's checkpoint
+   restored on the card, held to the JAX Cores' commits and the JAX
+   checkpoint's meta bytes and arrays (``WIDE_ENGINE_EXPECT``, made by
+   ``JAX_PLATFORMS=cpu python -m tests.test_torch_wide_engine``).  (e)
+   ss_count launched and la_walk not on every wide flow.
 
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -606,6 +631,69 @@ BYZ_ENGINE_EXPECT = {
 BYZ_SMALL = dict(n=32, e=2048, seed=11, fork_rate=0.02)
 BYZ_RAGGED = [(3, 1000, 77, 37, 3), (2, 4097, 130, 1025, 2),
               (1, 65, 63, 9, 8)]
+
+# phase 12: the wide-N pipeline (ops/wide.py, ops/stream.py, the
+# ss_count kernel, WideHashgraph).  (b) BASELINE config 3 through the
+# wide pipeline, as bench.py's run_wide runs its fallback (1024 x 100k,
+# s_cap = max_chain + 3, r_cap 16, int32, one block), and a mid-size
+# stream the JAX package finishes on a CPU (compaction engaged, C = 3,
+# int8): their summaries (pipeline_summary, stream_summary) from
+# ``JAX_PLATFORMS=cpu python -m tests.test_torch_wide``
+WIDE_FULL = dict(n=1024, e=100_000, seed=7, r_cap=16)
+WIDE_STREAM = dict(
+    n=256, e=48_000, seed=7,
+    cfg=dict(n=256, e_cap=24_000, s_cap=110, r_cap=16, coord8=True),
+    run=dict(batch_events=4000, n_blocks=3, round_margin=0, seq_window=16,
+             compact_min=1024),
+)
+WIDE_EXPECT = {
+    "full": {"ordered": 61900, "lcr": 4, "max_round": 6, "digest":
+             "642f345fe96cb0caf00fc22094c5c6ce2b58ff8e4963c7426f4b108e88c6fa50"},
+    "stream": {"ordered": 37684, "lcr": 11, "max_round": 13,
+               "evicted": 36404, "digest":
+               "f255ffb2582fc60f9d150f3d685d331cdf7d154b1011f63f8983ba47b776afd1"},
+}
+# (c) BASELINE config 5, "10k-node / 1M-event", as bench.py's run_10k
+# builds it (the tuple path).  That config cannot order the stream on
+# any platform: lcr first reaches 1 at 640,000 events, past its 620,000
+# window, and int8 cannot hold the in-window chain depth (127 at 800,000
+# events once the window is large enough; coord8 needs s_cap < 120).
+# Phase 12(c) pins both refusals, then runs the nearest config that
+# orders the whole stream: int16 coordinates, s_cap max_chain + 3 (as
+# bench.py's run_wide sizes it) and a window that holds the stream,
+# every other knob bench's.  No platform holds an ordering for it, so
+# WIDE10K_EXPECT is this script's own first reading on the card.
+WIDE10K = dict(
+    n=10_000, e=1_000_000, seed=7,
+    cfg=dict(n=10_000, e_cap=620_000, s_cap=110, r_cap=16, coord8=True),
+    run=dict(batch_events=160_000, round_margin=0, seq_window=48,
+             compact_min=4096),
+)
+WIDE10K_INT8_WINDOW = 1_000_000
+# (a) bench's config-5 block for ss_count: 10,000 rows a side, 1,667 int8
+# columns (6 blocks of the 10,000-wide, 620,000-event window)
+WIDE_INT8_BLOCK = (10_000, 1667)
+WIDE10K_RUN = dict(e_cap=1_000_000, coord8=False, coord16=True)
+WIDE10K_EXPECT = {
+    "ordered": 129275, "lcr": 1, "max_round": 4, "evicted": 52684,
+    "digest": "03d878f516bd95b7344bb1f096c4495d6ddd78b8bc0034527e411bd88b7b486d",
+}
+# (d) four Core(wide=True) nodes through sim/replay.py's seeded sync
+# schedule, and a checkpoint of one: the JAX Cores' commits and the
+# checkpoint's meta bytes and arrays (wide_engine_summary), from
+# ``JAX_PLATFORMS=cpu python -m tests.test_torch_wide_engine``
+WIDE_ENGINE = dict(n=4, syncs=600, seed=11, cache_size=256,
+                   wide_caps=(2048, 128, 32))
+WIDE_ENGINE_EXPECT = {
+    "commit_length": [573, 573, 573, 573],
+    "commit_digest": [
+        "346cc05f3b9758609628d952131652ea2b1d639de7a2d146970fac740f596816"] * 4,
+    "lcr": [43, 43, 43, 43], "evicted": 313,
+    "meta_sha256":
+        "db59a8b4482bc0bd9e6bbd033a255fa22f66d974eb36dde03888214df5def8cb",
+    "npz_sha256":
+        "c4b11d3fa601e5ba4fb497c9828c2850d23a371615303c879913354b2b9bef7e",
+}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
 PEAK_BYTES_S = 3.35e12
@@ -2733,6 +2821,114 @@ def byz_summary(out, n_events: int) -> dict:
                 detecting=int(det.any(axis=1).sum()), digest=h.hexdigest())
 
 
+def pipeline_summary(out) -> dict:
+    """What WIDE_EXPECT holds of a ``run_wide_pipeline`` state (the JAX
+    package's or the port's): the ordered count, lcr, max_round and a
+    SHA-256 over round, witness, famous, rr and cts in their dtypes."""
+    import numpy as np
+
+    def host(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+    ne = int(host(out.n_events))
+    h = hashlib.sha256()
+    for name, dt in (("round", np.int32), ("witness", np.bool_),
+                     ("famous", np.int8), ("rr", np.int32),
+                     ("cts", np.int64)):
+        a = host(getattr(out, name))
+        if name != "famous":
+            a = a[:ne]
+        h.update(np.ascontiguousarray(a, dt).tobytes())
+    return dict(ordered=int((host(out.rr)[:ne] >= 0).sum()),
+                lcr=int(host(out.lcr)), max_round=int(host(out.max_round)),
+                digest=h.hexdigest())
+
+
+def stream_summary(stream) -> dict:
+    """What WIDE_EXPECT and WIDE10K_EXPECT hold of a ``stream_consensus``
+    run (the JAX package's or the port's, ``record_ordered``): ordered
+    total, lcr, max_round, events evicted and a SHA-256 over every
+    ordered event's (global slot, round received, consensus timestamp)
+    in slot order."""
+    h = hashlib.sha256()
+    for slot in sorted(stream.ordered):
+        rr, cts = stream.ordered[slot]
+        h.update(f"{slot},{rr},{cts};".encode())
+    return dict(ordered=stream.ordered_total, lcr=stream.lcr,
+                max_round=stream.stats.get("max_round"),
+                evicted=stream.evicted, digest=h.hexdigest())
+
+
+def wide_replay(core_cls, key_from_scalar, cmds, **core_kw):
+    """Four ``Core(wide=True)`` of one package (its ``Core`` class,
+    ``key_from_scalar`` and ``net.commands`` module) through
+    WIDE_ENGINE's seeded sync schedule on one logical clock,
+    ``run_consensus`` after every sync.  Returns the Cores."""
+    from babble_tpu_torch.sim.replay import (
+        LogicalClock, replay_scalars, sync_schedule,
+    )
+
+    cfg = WIDE_ENGINE
+    scalars = replay_scalars(cfg["n"], cfg["seed"])
+    keys = [key_from_scalar(d) for d in scalars]
+    parts = {k.pub_hex: i for i, k in enumerate(keys)}
+    clock = LogicalClock()
+    cores = [core_cls(i, keys[i], dict(parts), wide=True,
+                      wide_caps=cfg["wide_caps"],
+                      cache_size=cfg["cache_size"], **core_kw)
+             for i in range(cfg["n"])]
+    for c in cores:
+        c.now_ns = clock
+    for c in cores:
+        c.init()
+    for i, (frm, to, payload) in enumerate(
+            sync_schedule(cfg["n"], cfg["syncs"], cfg["seed"])):
+        a, b = cores[frm], cores[to]
+        req = cmds.SyncRequest.unpack(cmds.SyncRequest("b", b.known()).pack())
+        diff = a.diff(req.known)
+        resp = cmds.SyncResponse.unpack(cmds.SyncResponse(
+            "a", a.head, a.to_wire(diff), a.known()).pack())
+        if not b.sync(resp.head, resp.events, payload):
+            raise AssertionError(f"wide replay sync {i} minted no event")
+        b.run_consensus()
+    return cores
+
+
+def checkpoint_digest(path: str) -> dict:
+    """SHA-256 of a checkpoint's ``meta.msgpack`` bytes, and one over its
+    ``device.npz`` arrays (name, dtype, shape, bytes, in file order: the
+    zip bytes carry timestamps)."""
+    import os
+
+    import numpy as np
+
+    with open(os.path.join(path, "meta.msgpack"), "rb") as f:
+        meta = hashlib.sha256(f.read()).hexdigest()
+    h = hashlib.sha256()
+    with np.load(os.path.join(path, "device.npz")) as z:
+        for name in z.files:
+            a = z[name]
+            h.update(f"{name}:{a.dtype}:{a.shape};".encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+    return dict(meta_sha256=meta, npz_sha256=h.hexdigest())
+
+
+def wide_engine_summary(cores, ckpt_path: str) -> dict:
+    """What WIDE_ENGINE_EXPECT holds of ``wide_replay``'s Cores: commit
+    lengths and digests, and core 0's checkpoint (``checkpoint_digest``;
+    its window must have rolled)."""
+    hg = cores[0].hg
+    if hg.dag.slot_base <= 0 or hg.stream.evicted != hg.dag.slot_base:
+        raise AssertionError(f"the wide window never rolled: slot_base "
+                             f"{hg.dag.slot_base}, evicted "
+                             f"{hg.stream.evicted}")
+    return dict(commit_length=[c.hg.commit_length for c in cores],
+                commit_digest=[c.hg.commit_digest for c in cores],
+                lcr=[c.hg.last_consensus_round for c in cores],
+                evicted=hg.stream.evicted,
+                **checkpoint_digest(ckpt_path))
+
+
 def ss_bound(g: int, x: int, w: int, n: int, k: int):
     """The least time one fork_ss call could take on the card: the larger
     of its operations and its bytes (la, hw, det read once, the counts
@@ -3034,6 +3230,379 @@ def phase_byzantine(dev, card: str) -> dict:
     }
 
 
+def ss_count_bound(g: int, a: int, b: int, w: int, elem: int):
+    """The least time one ss_count launch could take on the card: the
+    larger of its operations and its bytes.  The function needs g*a*b*w
+    signed compares (ISETP, the ALU pipe) and as many accumulations (the
+    adds, issued beside them on the FMA pipe), within the issue rate; its
+    bytes are both row sets read once and the int32 tally read and
+    written once.  Returns (ms, "operations" or "bytes")."""
+    cmp = add = g * a * b * w
+    nbytes = elem * g * (a + b) * w + 8 * a * b
+    t_ops = max(cmp / PEAK_INT32_OPS_S, add / PEAK_IMAD_OPS_S,
+                (cmp + add) / PEAK_ISSUE_OPS_S)
+    t_bytes = nbytes / PEAK_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_ss_count(name: str, rows_a, rows_b, timed: bool = False,
+                   tag: str = "(a)") -> dict:
+    """ss_count (``ss_counts_acc``) against its plain twin
+    ``ss_counts_compare`` on the card, exact, from a non-zero tally (the
+    kernel adds in place); with ``timed`` the kernel's ms warm (CUDA
+    events, mean of 5 after one warm-up) and L2 cold (mean of 3), and the
+    twin's ms (one run)."""
+    import torch
+
+    from babble_tpu_torch.ops.ss import ss_counts_acc, ss_counts_compare
+
+    a3 = rows_a if rows_a.dim() == 3 else rows_a[None]
+    b3 = rows_b if rows_b.dim() == 3 else rows_b[None]
+    g, na, w = a3.shape
+    nb = b3.shape[1]
+    acc0 = torch.arange(na * nb, device=rows_a.device,
+                        dtype=torch.int32).reshape(na, nb) % 7
+    got = ss_counts_acc(rows_a, rows_b, acc0.clone())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = acc0.clone()
+    for c in range(g):
+        want += ss_counts_compare(a3[c], b3[c])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((got.long() - want.long()).abs().max().item())
+    if not torch.equal(got, want):
+        raise AssertionError(f"ss_count != ss_counts_compare ({name}, "
+                             f"{rows_a.dtype} g={g} a={na} b={nb} w={w}): "
+                             f"{int((got != want).sum())} entries differ")
+    bound, by = ss_count_bound(g, na, nb, w, rows_a.element_size())
+    line = (f"[wide] {tag} ss_count {name} {str(rows_a.dtype)[6:]} g={g} "
+            f"a={na} b={nb} w={w}: exact; plain {plain_ms:.2f} ms")
+    row = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by)
+    if timed:
+        acc = acc0.clone()
+        row["ms"] = cuda_ms(lambda: ss_counts_acc(rows_a, rows_b, acc),
+                            reps=5)
+        row["ms_cold"] = cuda_ms_cold(
+            lambda: ss_counts_acc(rows_a, rows_b, acc), reps=3)
+        line += (f"; kernel {row['ms']:.3f} ms warm, {row['ms_cold']:.3f} "
+                 f"ms L2 cold (CUDA events, means of 5 and 3); bound "
+                 f"{bound:.3f} ms ({by}: compares on the ALU pipe, adds "
+                 f"on the FMA pipe); bound / warm {bound / row['ms']:.3f}")
+    print(line, flush=True)
+    return row
+
+
+def wide_march_rows(stream):
+    """ss_count's inputs at the 10k run's frontier-march shape, taken
+    from its final state: block 0's la rows of every chain's middle
+    in-window event (the bisect's candidates) and fd rows of the last
+    witness row still in the window (the round's witnesses; missing
+    witnesses read the sentinel row, as in the march)."""
+    import torch
+
+    from babble_tpu_torch.ops.state import sanitize
+
+    st, cfg = stream.state, stream.cfg
+    n = cfg.n
+    cnt_w = st.cnt[:n] - st.s_off[:n]
+    xs = st.ce[torch.arange(n, device=cnt_w.device),
+               torch.clamp(cnt_w // 2, 0, cfg.s_cap).long()]
+    valid = (st.wslot[:cfg.r_cap] >= 0).any(dim=1)
+    r = int(torch.nonzero(valid).max().item())
+    ws = st.wslot[r]
+    la = stream.la_blocks[0][sanitize(xs, cfg.e_cap).long()]
+    fd = stream.fd_blocks[0][sanitize(ws, cfg.e_cap).long()]
+    return la, fd, r
+
+
+def wide_coords_split(stream, dag, batch: int) -> str:
+    """The coords phase split, by one timed re-run of each scan over the
+    finished 10k stream's window (la over the last batch's levels, the
+    fd sweep over every live level with no own-seq seeding), all blocks,
+    host clock with a synchronize.  The scans write their blocks, so
+    this runs after every check that reads them."""
+    import torch
+
+    from babble_tpu_torch.ops.stream import _padded_schedule
+    from babble_tpu_torch.ops.wide import _jits
+
+    cfg, st = stream.cfg, stream.state
+    j = _jits(cfg, stream.C)
+    w = j["width"]
+    dev = st.sp.device
+    E, ne = dag.n_events, stream.n_live
+    sched = torch.tensor(_padded_schedule(dag.levels[E - batch:E], -1),
+                         device=dev)
+    la_sched = torch.where(sched >= 0, ne - batch + sched, cfg.e_cap)
+    fd_sched = torch.tensor(_padded_schedule(dag.levels[stream.e_off:E],
+                                             cfg.e_cap), device=dev)
+    args = (st.sp, st.op, st.creator, st.seq, st.s_off)
+    none = torch.zeros((0,), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = j["la_sched"](*args, la_sched)
+    for c, blk in enumerate(stream.la_blocks):
+        j["la_block_scan"](*args, blk, la_sched, c * w, pre)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pre = j["fd_sched"](st.sp, st.op, fd_sched)
+    for c, blk in enumerate(stream.fd_blocks):
+        j["fd_block_scan"](*args, none, 0, st.n_events, blk, fd_sched,
+                           c * w, pre)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (f"la over the last batch ({batch} events, {la_sched.shape[0]} "
+            f"schedule rows) {(t1 - t0) * 1e3:.1f} ms; fd sweep over the "
+            f"window ({ne} live events, {fd_sched.shape[0]} rows) "
+            f"{(t2 - t1) * 1e3:.1f} ms; {stream.C} blocks")
+
+
+def phase_wide(dev, card: str) -> dict:
+    """Phase 12 (module docstring).  Returns ss_count's JSON row."""
+    import os
+    import tempfile
+
+    import torch
+
+    from babble_tpu_torch import (
+        DagConfig, batch_from_arrays, random_gossip_arrays,
+    )
+    from babble_tpu_torch.crypto.keys import key_from_scalar
+    from babble_tpu_torch.net import commands
+    from babble_tpu_torch.node.core import Core
+    from babble_tpu_torch.ops.pallas_ingest import la_walk
+    from babble_tpu_torch.ops.ss import ss_counts_acc
+    from babble_tpu_torch.ops.stream import stream_consensus
+    from babble_tpu_torch.ops.wide import block_count, run_wide_pipeline
+    from babble_tpu_torch.store import load_checkpoint, save_checkpoint
+
+    t_phase = time.perf_counter()
+    # (a) the kernel against its twin: every type, ragged rows and
+    # columns, the -1 floor and the fd_inf sentinel, one block and stacked
+    gen = torch.Generator().manual_seed(11)
+    for dt, inf in ((torch.int8, 127), (torch.int16, 32767),
+                    (torch.int32, 2**31 - 1)):
+        for g, na, nb, w in ((1, 65, 63, 1), (1, 1000, 77, 1667),
+                             (3, 130, 257, 333), (1, 64, 64, 64)):
+            a = torch.randint(-1, 110, (g, na, w), generator=gen).to(dt)
+            b = torch.randint(-1, 120, (g, nb, w), generator=gen).to(dt)
+            b[b >= 110] = inf
+            a, b = a.to(dev), b.to(dev)
+            check_ss_count("ragged", a[0] if g == 1 else a,
+                           b[0] if g == 1 else b)
+    # bench's config-5 block, seeded rows with the sentinels
+    rows, w = WIDE_INT8_BLOCK
+    a = torch.randint(-1, 100, (rows, w), generator=gen)
+    b = torch.randint(-1, 120, (rows, w), generator=gen)
+    b[b >= 100] = 127
+    row8 = check_ss_count("config-5 block, seeded rows",
+                          a.to(torch.int8).to(dev), b.to(torch.int8).to(dev),
+                          timed=True)
+    del a, b
+
+    # (b) runs held to the JAX package: BASELINE config 3 through the
+    # wide pipeline, and the mid-size stream
+    f = WIDE_FULL
+    t0 = time.perf_counter()
+    dag = random_gossip_arrays(f["n"], f["e"], seed=f["seed"])
+    cfg = DagConfig(n=f["n"], e_cap=f["e"], s_cap=dag.max_chain + 3,
+                    r_cap=f["r_cap"])
+    batch = batch_from_arrays(dag, device=dev)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ss_counts_acc.launches = 0
+    la_walk.launches = 0
+    walls = []
+    for rep in range(2):
+        timings, stats = {}, {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_wide_pipeline(cfg, batch, timings=timings, stats=stats,
+                                assemble=False)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if rep == 0:
+            full_launches = ss_counts_acc.launches
+            got = pipeline_summary(out)
+        del out
+    if full_launches == 0 or la_walk.launches:
+        raise AssertionError(f"run_wide_pipeline launched ss_count "
+                             f"{full_launches} times and la_walk "
+                             f"{la_walk.launches} times")
+    verdict = "== WIDE_EXPECT" if got == WIDE_EXPECT["full"] else \
+        "!= WIDE_EXPECT"
+    print(f"[wide] (b) run_wide_pipeline {f['n']} x {f['e']} (BASELINE "
+          f"config 3, C={block_count(cfg)}, int32, s_cap {cfg.s_cap}, "
+          f"r_cap {cfg.r_cap}): {verdict} {got}; host build {host_ms:.1f} "
+          f"ms; first {walls[0]:.1f} ms, warm {walls[1]:.1f} ms "
+          f"({got['ordered'] / walls[1] * 1e3:,.0f} events ordered/s); "
+          f"phases {', '.join(f'{k} {v * 1e3:.1f} ms' for k, v in timings.items())}; "
+          f"ss_count launches {full_launches}; rounds to fame "
+          f"{stats.get('fame_decision_distance')}; {card}", flush=True)
+    if got != WIDE_EXPECT["full"]:
+        raise AssertionError(f"config 3 through run_wide != the JAX "
+                             f"package's: {got} vs {WIDE_EXPECT['full']}")
+    del batch, dag
+    s = WIDE_STREAM
+    ss_counts_acc.launches = 0
+    t0 = time.perf_counter()
+    mid = stream_consensus(DagConfig(**s["cfg"]), random_gossip_arrays(
+        s["n"], s["e"], seed=s["seed"]), device=dev, **s["run"])
+    got = stream_summary(mid)
+    verdict = "== WIDE_EXPECT" if got == WIDE_EXPECT["stream"] else \
+        "!= WIDE_EXPECT"
+    print(f"[wide] (b) stream_consensus {s['n']} x {s['e']} (window "
+          f"{s['cfg']['e_cap']}, C={mid.C}, int8): {verdict} {got}; "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms with the host build; "
+          f"ss_count launches {ss_counts_acc.launches}", flush=True)
+    if got != WIDE_EXPECT["stream"] or ss_counts_acc.launches == 0 \
+            or la_walk.launches:
+        raise AssertionError(f"the mid-size stream != the JAX package's "
+                             f"({got} vs {WIDE_EXPECT['stream']}) or "
+                             f"launched ss_count {ss_counts_acc.launches} "
+                             f"and la_walk {la_walk.launches} times")
+    del mid
+
+    # (c) BASELINE config 5 as bench.py's run_10k builds it (tuple path):
+    # its window overflows, and int8 in a window that holds the stream
+    # refuses the in-window depth; then the nearest config that runs
+    k = WIDE10K
+    t0 = time.perf_counter()
+    dag = random_gossip_arrays(k["n"], k["e"], seed=k["seed"])
+    print(f"[wide] (c) host build {time.perf_counter() - t0:.1f} s; "
+          f"max_chain {dag.max_chain}, levels {dag.n_levels}", flush=True)
+    la_walk.launches = 0
+    for name, cfg_kw, want in (
+            ("bench's config", k["cfg"], "overflows the window"),
+            (f"int8 in a {WIDE10K_INT8_WINDOW:,}-event window",
+             dict(k["cfg"], e_cap=WIDE10K_INT8_WINDOW),
+             "in-window chain depth")):
+        t0 = time.perf_counter()
+        seen = []
+        try:
+            stream_consensus(DagConfig(**cfg_kw), dag, device=dev,
+                             record_ordered=False, log=seen.append,
+                             **k["run"])
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError(f"config 5 ({name}) ordered the whole "
+                                 f"stream: {seen[-1:]}")
+        if want not in refused:
+            raise AssertionError(f"config 5 ({name}) refused otherwise: "
+                                 f"{refused}")
+        print(f"[wide] (c) config 5, {name}: refused after "
+              f"{len(seen)} batches ({seen[-1] if seen else ''}): "
+              f"{refused}; {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    cfg = DagConfig(**dict(k["cfg"], **WIDE10K_RUN,
+                           s_cap=dag.max_chain + 3))
+    torch.cuda.reset_peak_memory_stats()
+    ss_counts_acc.launches = 0
+    t0 = time.perf_counter()
+    stream = stream_consensus(
+        cfg, dag, device=dev, log=lambda m: print(f"[wide] (c) {m}",
+                                                  flush=True), **k["run"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ss_counts_acc.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches == 0 or la_walk.launches:
+        raise AssertionError(f"the 10k stream launched ss_count {launches} "
+                             f"times and la_walk {la_walk.launches} times")
+    st = stream.stats
+    got = stream_summary(stream)
+    ingested = st.get("events_ingested", k["e"])
+    if st.get("truncated") or ingested != k["e"] \
+            or st.get("median_bad_rows") != 0 or got["ordered"] <= 0 \
+            or stream.evicted <= 0:
+        raise AssertionError(f"the 10k stream did not order the whole DAG "
+                             f"cleanly: ingested {ingested}, evicted "
+                             f"{stream.evicted}, stats {st}")
+    rtf = {r: d for r, d in st.get("fame_decision_distance", {}).items()}
+    verdict = ("(first reading: WIDE10K_EXPECT unset)" if WIDE10K_EXPECT
+               is None else "== WIDE10K_EXPECT" if got == WIDE10K_EXPECT
+               else "!= WIDE10K_EXPECT")
+    print(f"[wide] (c) stream_consensus {k['n']} x {k['e']} (config 5 with "
+          f"int16, s_cap {cfg.s_cap}, window {cfg.e_cap}, C={stream.C}, "
+          f"batches {k['run']['batch_events']}): ingested {ingested}, "
+          f"ordered {got['ordered']}, lcr {got['lcr']}, max_round "
+          f"{got['max_round']}, evicted {got['evicted']}; wall {wall:.1f} s "
+          f"({got['ordered'] / wall:,.0f} events ordered/s, "
+          f"{ingested / wall:,.0f} ingested/s); phases "
+          f"{', '.join(f'{n} {v:.1f} s' for n, v in stream.timings.items())}; "
+          f"rounds to fame (fame_decision_distance) {rtf}; ss tallies "
+          f"{st.get('ss_tallies')}, round steps {st.get('round_steps')}, "
+          f"fame vote steps {st.get('fame_vote_steps')}, median chunks "
+          f"{st.get('median_chunks')}, bad rows {st.get('median_bad_rows')}; "
+          f"peak {peak / 2**30:.2f} GiB; ss_count launches {launches}; "
+          f"{verdict} {got}; {card}", flush=True)
+    if WIDE10K_EXPECT is not None and got != WIDE10K_EXPECT:
+        raise AssertionError(f"the 10k stream != WIDE10K_EXPECT: {got} vs "
+                             f"{WIDE10K_EXPECT}")
+    # the kernel at the 10k run's march shape, from its final state
+    la, fd, r = wide_march_rows(stream)
+    row = check_ss_count(f"10k march shape (witness row {r})", la, fd,
+                         timed=True, tag="(c)")
+    share = launches * row["ms"] / (wall * 1e3)
+    print(f"[wide] (c) ss_count share of the 10k wall: {share:.3f} "
+          f"({launches} launches at the march shape's warm ms)", flush=True)
+    del la, fd
+    print(f"[wide] (c) coords split, one re-run of each scan: "
+          f"{wide_coords_split(stream, dag, k['run']['batch_events'])}",
+          flush=True)
+    del stream, dag
+    torch.cuda.empty_cache()
+
+    # (d) four Core(wide=True) through the seeded replay, and core 0's
+    # checkpoint, held to the JAX Cores and the JAX checkpoint
+    ss_counts_acc.launches = 0
+    t0 = time.perf_counter()
+    cores = wide_replay(Core, key_from_scalar, commands, device=dev.type)
+    path = os.path.join(tempfile.mkdtemp(), "wide")
+    save_checkpoint(cores[0].hg, path)
+    got = wide_engine_summary(cores, path)
+    node_launches = ss_counts_acc.launches
+    back = load_checkpoint(path, device=dev.type)
+    if type(back).__name__ != "WideHashgraph" \
+            or back.commit_digest != cores[0].hg.commit_digest \
+            or back.known() != cores[0].hg.known():
+        raise AssertionError("the wide checkpoint did not round-trip")
+    verdict = "== WIDE_ENGINE_EXPECT" if got == WIDE_ENGINE_EXPECT else \
+        "!= WIDE_ENGINE_EXPECT"
+    print(f"[wide] (d) {WIDE_ENGINE['n']} Core(wide=True) x "
+          f"{WIDE_ENGINE['syncs']} syncs: {verdict} (commits "
+          f"{got['commit_length']}, lcr {got['lcr']}, evicted "
+          f"{got['evicted']}, meta {got['meta_sha256'][:16]}, npz "
+          f"{got['npz_sha256'][:16]}); checkpoint restored on the card, "
+          f"digests equal; ss_count launches {node_launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if got != WIDE_ENGINE_EXPECT:
+        raise AssertionError(f"the wide Cores != the JAX package's: {got} "
+                             f"vs {WIDE_ENGINE_EXPECT}")
+    # (e) no wide flow walks la
+    if node_launches == 0 or la_walk.launches:
+        raise AssertionError(f"the wide Cores launched ss_count "
+                             f"{node_launches} times and la_walk "
+                             f"{la_walk.launches} times")
+    print(f"[wide] (e) la_walk launches on every wide flow: 0; phase 12 "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return {
+        "name": "ss_count", "route": "cuda",
+        "source": "babble_tpu_torch/csrc/ss_count.cu",
+        "replaces": "babble_tpu/ops/wide.py:209",
+        "launches": launches, "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "ms_cold": row["ms_cold"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "int8_block_ms": row8["ms"], "int8_block_ms_cold": row8["ms_cold"],
+        "int8_block_plain_ms": row8["plain_ms"],
+        "int8_block_bound_ms": row8["bound_ms"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -3048,7 +3617,7 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["la_walk", "fork_ss"])
+    logs = cuda_build.build(["la_walk", "fork_ss", "ss_count"])
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in logs.items():
         print(f"[build] {name}:\n{text.strip()}", flush=True)
@@ -3102,9 +3671,10 @@ def main() -> int:
           f"{time.perf_counter() - t1:.1f} s)", flush=True)
 
     byz_row = phase_byzantine(dev, card)
+    wide_row = phase_wide(dev, card)
 
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": [row, byz_row]}), flush=True)
+    print(json.dumps({"kernels": [row, byz_row, wide_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -123,14 +123,16 @@ def test_chaos_run_flaky_link_prints_chip_smokes_fingerprint():
             == chip_smoke.CHAOS_EXPECT["flaky-link"][1]["fingerprint"])
 
 
-def test_chaos_run_of_a_byzantine_scenario_exits_naming_item_7(
+def test_chaos_run_of_a_byzantine_scenario_prints_the_jax_fingerprint(
         tmp_path, monkeypatch):
     """The byzantine scenarios (ROADMAP item 7, refused before the port
     had the engine): ``chaos run fork-attack`` prints the JAX cli's
     fingerprint (chip_smoke.CHAOS_EXPECT, held to the JAX package by
     tests/test_torch_chaos_scenarios.py), and ``--live`` hands a
-    byzantine scenario to ``run_live`` unrefused.  The name is the
-    refusal test's that this one replaced in place."""
+    byzantine scenario to ``run_live`` unrefused.  Renamed from
+    ``test_chaos_run_of_a_byzantine_scenario_exits_naming_item_7``, the
+    refusal test this one replaced in place, whose name said the
+    opposite."""
     import chip_smoke
     from babble_tpu_torch import chaos
 

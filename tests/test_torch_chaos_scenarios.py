@@ -102,12 +102,13 @@ def test_broken_fork_attack_fails_loudly_as_in_jax():
     assert {v.invariant for v in port.report.violations} == {"fork_detected"}
 
 
-def test_byzantine_scenarios_raise_naming_item_7():
+def test_byzantine_scenario_gives_the_jax_fingerprint():
     """The JAX package's mini-fork (the byzantine engine, ROADMAP item 7,
     which the port refused before it had that engine): a forked creator
     planted at two honest nodes, detected by every honest node, with the
-    JAX package's fingerprint.  The name is the refusal test's that this
-    one replaced in place."""
+    JAX package's fingerprint.  Renamed from
+    ``test_byzantine_scenarios_raise_naming_item_7``, the refusal test
+    this one replaced in place, whose name said the opposite."""
     jax, port = run_both(_MINI_FORK)
     assert_parity(jax, port)
     assert port.fork_attack == jax.fork_attack

@@ -316,24 +316,28 @@ def test_tolerant_load_version_gate_and_other_engines(tmp_path):
     meta = codec.unpackb(raw)
     # a fused meta tagged "byzantine" goes to the fork restore (ported
     # with the byzantine engine, ROADMAP item 7), which refuses its
-    # version as the JAX package's does; "wide" is not ported (item 8)
-    for version, mode, exc in ((7, None, ValueError), (1, None, ValueError),
-                               (6, "byzantine", ValueError),
-                               (6, "wide", NotImplementedError)):
-        bad = dict(meta, version=version)
-        if mode:
-            bad["mode"] = mode
+    # version as the JAX package's does; one tagged "wide" goes to the
+    # wide restore (item 8, refused before the port had the engine),
+    # which finds no block layout or no blocks, as JAX's does
+    for version, extra, exc in ((7, {}, ValueError), (1, {}, ValueError),
+                                (6, dict(mode="byzantine"), ValueError),
+                                (6, dict(mode="wide"), KeyError),
+                                (6, dict(mode="wide", n_blocks=2),
+                                 KeyError)):
         with open(meta_path, "wb") as f:
-            f.write(codec.packb(bad))
+            f.write(codec.packb(dict(meta, version=version, **extra)))
         with pytest.raises(exc) as perr:
             pck.load_checkpoint(path, device=CPU)
-        if exc is ValueError:
-            with pytest.raises(ValueError) as jerr:
-                jck.load_checkpoint(path)
-            assert str(perr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pck.load_snapshot(codec.packb([codec.packb(dict(
-            meta, mode="wide", n_blocks=2)), b""]), device=CPU)
+        with pytest.raises(exc) as jerr:
+            jck.load_checkpoint(path)
+        assert str(perr.value) == str(jerr.value)
+    no_blocks = codec.packb([codec.packb(dict(meta, mode="wide",
+                                              n_blocks=2)), b""])
+    with pytest.raises(EOFError) as perr:
+        pck.load_snapshot(no_blocks, device=CPU)
+    with pytest.raises(EOFError) as jerr:
+        jck.load_snapshot(no_blocks)
+    assert str(perr.value) == str(jerr.value)
     hostile = codec.packb([codec.packb(dict(meta, mode="byzantine")), b""])
     with pytest.raises(KeyError) as jerr:
         jck.load_snapshot(hostile)

@@ -9,11 +9,12 @@ CPU.
   same identity, and prints the JAX package's PEM;
 - ``sim --device cpu`` prints JAX ``cli sim``'s ``ordered``,
   ``last_consensus_round`` and ``max_round`` on the same DAG;
-- the flags and verbs whose machinery is not ported raise naming their
+- the verbs whose machinery is not ported raise naming their
   ROADMAP.md item, ``run``'s byzantine flags (``--byzantine``,
-  ``--fork_k``, ``--fork_caps``) reach the node's engine as the JAX cli
-  sets them, and ``run`` without ``--device`` takes the card (so it
-  fails on a machine without one instead of falling back);
+  ``--fork_k``, ``--fork_caps``) and wide flags (``--engine wide``,
+  ``--wide_caps``) reach the node's engine as the JAX cli sets them,
+  and ``run`` without ``--device`` takes the card (so it fails on a
+  machine without one instead of falling back);
 - ``run``'s ``--chaos_*`` flags are accepted and reach ``_chaos_wrap``;
 - three port node processes (``TestnetRunner(device="cpu")``) with dummy
   apps commit a few dozen transactions submitted over JSON-RPC, every
@@ -155,19 +156,50 @@ def test_sim_prints_the_jax_counts():
     assert set(jax) <= set(port)
 
 
-NOT_PORTED = [
-    (["--engine", "wide"], "item 8"),
-    (["--wide_caps", "4,4,4"], "item 8"),
-]
+@pytest.mark.parametrize("flags,caps", [
+    (["--engine", "wide"], None),
+    (["--engine", "wide", "--wide_caps", "4096,64,16"], (4096, 64, 16)),
+])
+def test_wide_run_flags_reach_the_node(tmp_path, monkeypatch, flags, caps):
+    """``--engine wide`` and ``--wide_caps`` (ROADMAP item 8, refused
+    before the port had the engine) boot the node on a ``WideHashgraph``
+    with the capacities the JAX Core derives.  Renamed from
+    ``test_unported_run_flags_raise_naming_their_item``, which now says
+    the opposite."""
+    from babble_tpu.node.core import Core as JCore
+    from babble_tpu_torch.consensus.wide_engine import WideHashgraph
+    from babble_tpu_torch.node import node as pnode
 
+    tn.build_conf(str(tmp_path), 2)
+    seen = {}
 
-@pytest.mark.parametrize("flags,item", NOT_PORTED)
-def test_unported_run_flags_raise_naming_their_item(flags, item):
-    with pytest.raises(SystemExit) as err:
-        pcli.main(["run", "--datadir", "/nonexistent"] + flags)
-    msg = str(err.value)
-    assert msg.startswith(f"{flags[0]} ") and f"ROADMAP.md Queue 1, {item}" \
-        in msg
+    class Spy(pnode.Node):
+        def __init__(self, conf, *a, **k):
+            super().__init__(conf, *a, **k)
+            seen.update(conf=conf, hg=self.core.hg, key=self.core.key,
+                        parts=self.core.participants)
+            raise _Wrapped
+
+    monkeypatch.setattr(pnode, "Node", Spy)
+    with pytest.raises(_Wrapped):
+        pcli.main(["run", "--datadir", str(tmp_path / "node0"),
+                   "--no_client", "--node_addr", "127.0.0.1:0",
+                   "--device", "cpu"] + flags)
+    conf, hg = seen["conf"], seen["hg"]
+    assert (conf.engine, conf.wide_caps) == ("wide", caps)
+    assert isinstance(hg, WideHashgraph)
+    jargs = _jax_run_parser(monkeypatch).parse_args(
+        ["--datadir", "x"] + flags)
+    assert (jargs.engine, jcli._parse_fork_caps(
+        jargs.wide_caps, flag="--wide_caps")) == ("wide", caps)
+    from babble_tpu.crypto.keys import key_from_scalar as jkey
+
+    jcore = JCore(0, jkey(7), dict(seen["parts"]), wide=True,
+                  wide_caps=caps, cache_size=conf.cache_size,
+                  seq_window=conf.seq_window)
+    assert tuple(hg.cfg) == tuple(jcore.hg.cfg)
+    assert (hg.seq_window, hg.consensus_window, hg.stream.C) == (
+        jcore.hg.seq_window, jcore.hg.consensus_window, jcore.hg.stream.C)
 
 
 class _Wrapped(Exception):

@@ -36,7 +36,6 @@ from babble_tpu.wal import WriteAheadLog as JWal
 from babble_tpu_torch.crypto import keys as pkeys
 from babble_tpu_torch.net import commands as pcmd
 from babble_tpu_torch.node.core import Core as PCore
-from babble_tpu_torch.node.core import NOT_PORTED_WIDE
 from babble_tpu_torch.sim.replay import (
     LogicalClock, replay_scalars, sync_schedule,
 )
@@ -175,10 +174,14 @@ def test_schedule_and_scalars_are_stable():
                     for d in replay_scalars(4, 7)]
 
 
-def test_core_refuses_the_unported_engines():
-    """The wide engine (item 8) and a foreign engine are refused; the
-    byzantine engine (item 7) is built, as the JAX Core builds it."""
+def test_core_builds_the_byzantine_and_wide_engines_as_jax_does():
+    """The byzantine engine (item 7) and the wide engine (item 8, which
+    the Core refused before the port had it) are built with the JAX
+    Core's knobs; a foreign engine is refused.  Renamed from
+    ``test_core_refuses_the_unported_engines``, which now says the
+    opposite."""
     from babble_tpu_torch.consensus.fork_engine import ForkHashgraph
+    from babble_tpu_torch.consensus.wide_engine import WideHashgraph
 
     k = pkeys.key_from_scalar(11)
     parts = {k.pub_hex: 0}
@@ -190,9 +193,17 @@ def test_core_refuses_the_unported_engines():
     for name in ("k", "verify_signatures", "auto_compact", "seq_window",
                  "compact_min", "round_margin", "_caps"):
         assert getattr(core.hg, name) == getattr(jcore.hg, name), name
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PCore(0, k, parts, wide=True, device=CPU)
-    assert "ROADMAP.md" in NOT_PORTED_WIDE
+    for kw in (dict(), dict(cache_size=64, seq_window=40,
+                            wide_caps=(512, 64, 16))):
+        core = PCore(0, k, parts, wide=True, device=CPU, **kw)
+        jcore = JCore(0, jkeys.key_from_scalar(11), parts, wide=True, **kw)
+        assert isinstance(core.hg, WideHashgraph) and not core.byzantine
+        assert tuple(core.hg.cfg) == tuple(jcore.hg.cfg)
+        for name in ("auto_compact", "seq_window", "round_margin",
+                     "compact_min", "consensus_window", "inactive_rounds",
+                     "kernel_class", "finality_gate"):
+            assert getattr(core.hg, name) == getattr(jcore.hg, name), name
+        assert core.hg.stream.C == jcore.hg.stream.C
 
     class Stranger:
         participants = parts

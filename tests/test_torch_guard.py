@@ -99,6 +99,28 @@ save_checkpoint(eng, path)
 back = load_checkpoint(path, device="cpu")
 assert back.commit_digest == eng.commit_digest and back.epoch == 1
 assert back.membership_log == eng.membership_log
+# the wide pipeline's rolling-window stream (compaction engaged, C > 1)
+# and a wide engine's checkpoint round trip
+wide = bt.stream_consensus(bt.DagConfig(n=8, e_cap=256, s_cap=64, r_cap=16,
+                                        coord8=True),
+                           bt.random_gossip_arrays(8, 600, seed=3),
+                           batch_events=100, n_blocks=3, seq_window=8,
+                           compact_min=32, device="cpu")
+assert wide.evicted > 0 and wide.ordered_total > 0, wide.stats
+weng = bt.WideHashgraph(gen.participants, verify_signatures=False,
+                        device="cpu", e_cap=96, s_cap=32, r_cap=16,
+                        n_blocks=2, seq_window=6, compact_min=16)
+for lo in range(0, 120, 24):
+    for ev in gen.events[lo:lo + 24]:
+        weng.insert_event(ev.clone())
+    weng.run_consensus()
+assert weng.commit_length > 0 and weng.dag.slot_base > 0
+path = tempfile.mkdtemp() + "/wide"
+save_checkpoint(weng, path)
+wback = load_checkpoint(path, device="cpu")
+assert type(wback).__name__ == "WideHashgraph"
+assert wback.commit_digest == weng.commit_digest
+assert wback.known() == weng.known()
 import asyncio
 from babble_tpu_torch.crypto.keys import key_from_scalar
 from babble_tpu_torch.net import InmemNetwork, Peer
