@@ -22,7 +22,9 @@ the one-hot form is kept for parity with the JAX package.
 ``ss_counts_acc`` is the wide engine's per-block partial
 (``ops/wide.py _ss_partial``): ``acc += compare count``, in place.  On
 CUDA tensors it launches the hand-written ``csrc/ss_count.cu``; on CPU
-tensors it runs ``ss_counts_compare``, its plain twin.
+tensors it runs ``ss_counts_compare``, its plain twin.  The kernel
+compares int8 and int16 rows four or two to a 32-bit word, so the
+wrapper first hands it rows padded to 16 bytes (``padded_rows``).
 """
 
 from __future__ import annotations
@@ -183,6 +185,28 @@ def _ss_count_lib() -> ctypes.CDLL:
     return lib
 
 
+#: the packed kernel's row alignment
+PACK_BYTES = 16
+
+
+def padded_rows(rows: torch.Tensor, side: str) -> torch.Tensor:
+    """``rows`` ``[G, R, w]`` (int8 or int16) as the packed kernel reads
+    them: every row's columns padded to a multiple of ``PACK_BYTES``,
+    every row starting on a ``PACK_BYTES`` boundary.  Pad columns hold
+    the type's minimum on the A side (``side="a"``) and its maximum on
+    the B side (``"b"``): a pad column meets only pad columns, and min >=
+    max is false, so the pads count nothing whatever the real values
+    are.  A new contiguous tensor."""
+    per16 = PACK_BYTES // rows.element_size()
+    g, r, w = rows.shape
+    wp = -(-w // per16) * per16
+    info = torch.iinfo(rows.dtype)
+    out = torch.empty((g, r, wp), dtype=rows.dtype, device=rows.device)
+    out[..., :w] = rows
+    out[..., w:] = info.min if side == "a" else info.max
+    return out
+
+
 def _launch_ss_count(rows_a, rows_b, acc):
     dev = rows_a.device
     if dev.type != "cuda":
@@ -197,6 +221,9 @@ def _launch_ss_count(rows_a, rows_b, acc):
     nb = b3.shape[1]
     if acc.numel() == 0 or w == 0 or g == 0:
         return acc
+    if a3.element_size() < 4:
+        a3, b3 = padded_rows(a3, "a"), padded_rows(b3, "b")
+        w = a3.shape[2]
     fn = _ss_count_lib().ss_count_launch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    (``la_walk.cu``, ``fork_ss.cu`` and ``ss_count.cu``, one nvcc per
    source, all started together) and print ``-Xptxas -v``, then la_walk's registers and
    shared memory as the runtime sees them (static staging plus the
-   dynamic int16 column).
+   dynamic int16 column), and ss_count's SASS (``cuobjdump -sass``): each
+   kernel's instructions and its innermost loop's by opcode, per dp4a
+   (one 32-bit word pair) in the packed kernels.
 3. kernel — each kernel's wrapper on the card against its plain torch
    version on the same card inputs, at the main path's shapes (the
    64 x 65,536 slice DAG), on one small DAG, at the largest size the
@@ -221,9 +223,13 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 12. wide — the wide-N engine (``ops/wide.py``, ``ops/stream.py``, its
    kernel ``csrc/ss_count.cu``, ``WideHashgraph``, ``Core(wide=True)``).
    (a) ss_count against its plain twin ``ss_counts_compare``, exact,
-   from a non-zero tally, at int8, int16 and int32 with ragged rows and
-   columns, the -1 and fd_inf sentinels and a stacked pair, and at
-   bench's config-5 block (10,000 x 10,000 x 1,667 int8) timed.  (b)
+   from a non-zero tally, at int8, int16 and int32, over
+   ``ss_count_cases`` (ragged rows and columns with the -1 and fd_inf
+   sentinels, widths off 4 and 16 bytes, rows off the 128 x 128 tile,
+   stacked G = 2-4, the type's extremes on both sides, gathered rows
+   and strided views), then timed at bench's config-5 block (10,000 x
+   10,000 x 1,667 int8) and config 3's int32 shape (1,024 x 1,024 x
+   1,024), each beside ``ss_count_bound``.  (b)
    BASELINE config 3 through ``run_wide_pipeline`` (1024 x 100,000,
    int32, as bench.py's run_wide fallback runs it), first and warm, and
    a 256 x 48,000 stream with compaction in 3 int8 blocks, both held to
@@ -236,8 +242,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    coordinates in a 1,000,000-event window (``WIDE10K_RUN``), every
    event ingested, evicted > 0, bad rows 0, held to ``WIDE10K_EXPECT``
    (this script's first reading); it prints events ordered, lcr,
-   rounds to fame, the phase split, peak memory, ss_count's launches,
-   its ms at the run's march shape and share of the wall.  (d) four
+   rounds to fame, the phase split (the rounds phase holds ss_count),
+   peak memory, ss_count's launches, its ms at the run's march shape
+   beside the bound and its share of the wall.  (d) four
    ``Core(wide=True)`` through a seeded replay and core 0's checkpoint
    restored on the card, held to the JAX Cores' commits and the JAX
    checkpoint's meta bytes and arrays (``WIDE_ENGINE_EXPECT``, made by
@@ -698,8 +705,9 @@ WIDE_ENGINE_EXPECT = {
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
-# integer rates for fork_ss' bound, 132 SMs at 1.98 GHz boost.  The CUDA
-# C++ Programming Guide's throughput table gives compute capability 9.0
+# integer rates for fork_ss' and ss_count's bounds, 132 SMs at 1.98 GHz
+# boost.  The CUDA C++ Programming Guide's throughput table gives
+# compute capability 9.0
 # 64 results a clock an SM for 32-bit integer compare and for 32-bit
 # integer multiply-add; Nsight Compute's pipe list puts the compares
 # (ISETP) on the ALU pipe and IMAD on the FMA pipe, so the two can run
@@ -890,6 +898,164 @@ def kernel_resources() -> None:
           f"dynamic: {static + a['dynamic_smem']} B at e_cap "
           f"{SLICE['e']}, {static + gate['dynamic_smem']} B at the gate's "
           f"edge {GATE['e']} (of 232,448)", flush=True)
+
+
+def sass_listing(lib_path: str, match: str = "", dump: str = "") -> dict:
+    """The SASS of every kernel in a built library whose mangled name
+    holds ``match``, by ``cuobjdump -sass`` (the CUDA toolkit's, beside
+    nvcc): {kernel: [(address, opcode, branch target or None)]}, the
+    opcode without its modifiers but IMAD's first (IMAD.IADD, IMAD.MOV,
+    ... run as IMAD on the FMA pipe).  With ``dump``, the whole listing
+    is also written to that file."""
+    import os
+
+    from babble_tpu_torch import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    if dump:
+        with open(dump, "w") as f:
+            f.write(text)
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if match in m.group(1) else None
+            if name:
+                out[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)(?:\s+(0x[0-9a-f]+))?", line)
+        if name and m:
+            op = m.group(2)
+            op = ".".join(op.split(".")[:2 if op.startswith("IMAD") else 1])
+            target = int(m.group(3), 16) if op == "BRA" and m.group(3) \
+                else None
+            out[name].append((int(m.group(1), 16), op, target))
+    return out
+
+
+def _counts(ins) -> dict:
+    ops = {}
+    for _, op, _ in ins:
+        ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def kernel_sass(lib_path: str, match: str, label: str) -> None:
+    """Prints, for each kernel of ``lib_path`` matching ``match``, its
+    instruction count and its compare loop: the backward branch's body
+    densest in the compare-count's own instruction (IDP, the dp4a of one
+    32-bit word pair, in the packed kernels; else ISETP, one pair), by
+    opcode and per that instruction, split by pipe (ALU: LOP3, IADD3,
+    ISETP, LEA, SHF, SEL; FMA: IMAD*, IDP; VIADD, Hopper's add of an
+    immediate, neither)."""
+    keys = ("LOP3", "IADD3", "IMAD", "IMAD.IADD", "IMAD.MOV", "VIADD",
+            "IDP", "ISETP", "LEA", "SHF", "LDS", "STS", "LDG", "BAR",
+            "BRA")
+    for name, ins in sass_listing(lib_path, match).items():
+        key = "IDP" if any(op == "IDP" for _, op, _ in ins) else "ISETP"
+        loops = [[x for x in ins if t <= x[0] <= at]
+                 for at, op, t in ins if t is not None and t < at]
+        hot = max(loops, key=lambda body: _counts(body).get(key, 0)
+                  / len(body), default=[])
+        ops = _counts(hot)
+        line = ", ".join(f"{k} {ops[k]}" for k in keys if ops.get(k))
+        per = ""
+        if ops.get(key):
+            alu = sum(ops.get(k, 0) for k in ("LOP3", "IADD3", "ISETP",
+                                              "LEA", "SHF", "SEL"))
+            fma = sum(v for k, v in ops.items()
+                      if k.startswith("IMAD") or k == "IDP")
+            per = (f"; per {key}: {len(hot) / ops[key]:.3f} instructions, "
+                   f"ALU pipe {alu / ops[key]:.3f}, FMA pipe "
+                   f"{fma / ops[key]:.3f}, LDS "
+                   f"{ops.get('LDS', 0) / ops[key]:.3f}")
+        print(f"[build] {label} SASS {name[:64]}: {len(ins)} instructions; "
+              f"compare loop {len(hot)}: {line}{per}", flush=True)
+
+
+def ss_count_turns(other: str, card: str) -> dict:
+    """ss_count against another source of it (``other``, a former
+    version of ``csrc/ss_count.cu`` with the same C interface for rows
+    with any row stride), built here with the same nvcc flags, timed in
+    turns on this card: other, this, this, other, at the 10k run's march
+    shape (10,000 x 10,000 x 527 int16), bench's config-5 block (10,000
+    x 10,000 x 1,667 int8) and config 3's int32 shape (1,024 x 1,024 x
+    1,024); seeded rows with the -1 floor and the fd_inf sentinel.  The
+    two versions must agree exactly.  ``this`` is the wrapper
+    ``ss_counts_acc``, its row padding included.  Prints and returns
+    each version's ms warm and L2 cold (CUDA events, means of 5 and 3)
+    and the share of the bound."""
+    import ctypes
+    import os
+    import tempfile
+
+    import torch
+
+    from babble_tpu_torch import cuda_build
+    from babble_tpu_torch.ops.ss import ss_counts_acc
+
+    lib = os.path.join(tempfile.mkdtemp(), "libss_count_other.so")
+    built = subprocess.run(
+        [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, other],
+        capture_output=True, text=True, timeout=600)
+    if built.returncode != 0:
+        raise RuntimeError(f"building {other} failed:\n{built.stdout}"
+                           f"{built.stderr}")
+    print(f"[turns] built {other}:\n{(built.stdout + built.stderr).strip()}",
+          flush=True)
+    kernel_sass(lib, "ss_count", "other")
+    fn = ctypes.CDLL(lib).ss_count_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def run_other(a, b, acc):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), acc.data_ptr(), a.shape[0],
+                b.shape[0], a.shape[1], 1, a.stride(0), b.stride(0), 0, 0,
+                a.element_size(), stream)
+        if rc:
+            raise RuntimeError(f"the other ss_count failed: {rc}")
+        return acc
+
+    gen = torch.Generator().manual_seed(12)
+    out = {}
+    for label, rows, w, dt, top in (
+            ("10k march shape", 10_000, 527, torch.int16, 142),
+            ("config-5 int8 block", 10_000, 1667, torch.int8, 100),
+            ("config-3 int32 shape", 1024, 1024, torch.int32, 133)):
+        inf = torch.iinfo(dt).max
+        a = torch.randint(-1, top, (rows, w), generator=gen).to(dt).cuda()
+        b = torch.randint(-1, top + 20, (rows, w), generator=gen)
+        b[b >= top] = inf
+        b = b.to(dt).cuda()
+        zero = torch.zeros((rows, rows), dtype=torch.int32, device="cuda")
+        want = run_other(a, b, zero.clone())
+        got = ss_counts_acc(a, b, zero.clone())
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"ss_count != the other version at {label}")
+        bound, _ = ss_count_bound(1, rows, rows, w, a.element_size())
+        acc = zero.clone()
+        times = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            f = (lambda: run_other(a, b, acc)) if who == "other" else \
+                (lambda: ss_counts_acc(a, b, acc))
+            times[who].append((cuda_ms(f, reps=5), cuda_ms_cold(f, reps=3)))
+        out[label] = dict(times, bound_ms=bound)
+        fmt = lambda ts: "; ".join(f"{w_:.3f} warm / {c_:.3f} cold"
+                                   for w_, c_ in ts)
+        print(f"[turns] {label} ({dt}, {rows} x {rows} x {w}): other "
+              f"{fmt(times['other'])}; this {fmt(times['this'])}; bound "
+              f"{bound:.3f} ms, bound / warm: other "
+              f"{bound / min(t[0] for t in times['other']):.3f}, this "
+              f"{bound / min(t[0] for t in times['this']):.3f}; {card}",
+              flush=True)
+        del a, b, zero, acc, want, got
+    return out
 
 
 def phase_slice(dev, card: str):
@@ -3231,28 +3397,90 @@ def phase_byzantine(dev, card: str) -> dict:
 
 
 def ss_count_bound(g: int, a: int, b: int, w: int, elem: int):
-    """The least time one ss_count launch could take on the card: the
-    larger of its operations and its bytes.  The function needs g*a*b*w
-    signed compares (ISETP, the ALU pipe) and as many accumulations (the
-    adds, issued beside them on the FMA pipe), within the issue rate; its
-    bytes are both row sets read once and the int32 tally read and
+    """The least time one ss_count launch could take on the card, for any
+    design: the larger of its operations and its bytes.  The function
+    compares g*a*b*w pairs of ``elem``-byte values.  A lane operation
+    reads at most one 32-bit word of each row, so 4 / elem pairs (4
+    int8, 2 int16, 1 int32); a word pair needs at least two lane
+    operations, one that compares and one that adds into a count; and an
+    SM dispatches at most 128 lane operations a clock (4 schedulers x 32
+    lanes; the ALU and FMA pipes 64 each at compute capability 9.0).  So
+    g*a*b*w / (4 / elem) word pairs at ``PEAK_INT32_OPS_S`` bound every
+    design.  (The tensor cores' one-hot product needs 2*a*b*w*S1 int8
+    operations for S1 seq buckets: 7.6 ms at the 10k run's shape with
+    S1 = 143, 2.6 ms with a 48-wide band, at the 1,979 TOP/s int8 peak.)
+    Its bytes are both row sets read once and the int32 tally read and
     written once.  Returns (ms, "operations" or "bytes")."""
-    cmp = add = g * a * b * w
-    nbytes = elem * g * (a + b) * w + 8 * a * b
-    t_ops = max(cmp / PEAK_INT32_OPS_S, add / PEAK_IMAD_OPS_S,
-                (cmp + add) / PEAK_ISSUE_OPS_S)
-    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = g * a * b * w / (4 // elem) / PEAK_INT32_OPS_S
+    t_bytes = (elem * g * (a + b) * w + 8 * a * b) / PEAK_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ss_count_cases(dt, gen):
+    """ss_count's exactness cases at one coordinate type, as CPU tensors
+    ``(name, rows_a, rows_b, acc0)`` (the twin is ``acc0 + sum_g
+    ss_counts_compare``): ragged rows and columns with the -1 floor and
+    the fd_inf sentinel; widths not a multiple of 4 or of 16 bytes; rows
+    under one 128 x 128 tile and not a multiple of it; stacked G = 2, 3,
+    4; the type's minimum and maximum on both sides (la = max against
+    fd = min and the reverse); gathered rows whose stride is off a
+    4-byte boundary; strided views.  Phase 12(a) and
+    tests/test_torch_wide.py's card test run them all."""
+    import torch
+
+    info = torch.iinfo(dt)
+    lo, hi = info.min, info.max
+
+    def acc0(na, nb):
+        return torch.randint(0, 5, (na, nb), generator=gen,
+                             dtype=torch.int32)
+
+    cases = []
+    for g, na, nb, w in ((1, 65, 63, 1), (1, 130, 257, 1667),
+                         (3, 1000, 77, 333), (2, 64, 64, 64),
+                         (1, 7, 5, 3), (1, 129, 300, 527), (2, 3, 130, 13),
+                         (4, 200, 129, 22), (1, 256, 128, 40)):
+        a = torch.randint(-1, 110, (g, na, w), generator=gen).to(dt)
+        b = torch.randint(-1, 120, (g, nb, w), generator=gen)
+        b[b >= 110] = hi
+        b = b.to(dt)
+        cases.append((f"ragged g={g} {na}x{nb}x{w}", a if g > 1 else a[0],
+                      b if g > 1 else b[0], acc0(na, nb)))
+    ext = torch.tensor([lo, lo + 1, -1, 0, 1, hi - 1, hi])
+    a = ext[torch.randint(0, 7, (2, 150, 37), generator=gen)].to(dt)
+    b = ext[torch.randint(0, 7, (2, 141, 37), generator=gen)].to(dt)
+    a[:, 0], b[:, 0] = hi, lo
+    a[:, 1], b[:, 1] = lo, hi
+    cases.append(("extremes g=2 150x141x37", a, b, acc0(150, 141)))
+    full = torch.randint(lo, hi + 1, (300, 531), generator=gen).to(dt)
+    idx = torch.randint(0, 300, (190,), generator=gen)
+    cases.append(("gathered rows 190x170x527", full[idx, :527],
+                  full[idx.flip(0)[:170], 4:], acc0(190, 170)))
+    cases.append(("strided views 300x150x530", full[:, 1:],
+                  full[::2, :530], acc0(300, 150)))
+    stk = torch.randint(lo, hi + 1, (3, 70, 91), generator=gen).to(dt)
+    cases.append(("stacked strided views g=3 70x65x87", stk[:, :, 2:89],
+                  stk[:, 5:, :87], acc0(70, 65)))
+    return cases
+
+
+def card_view(x, dev):
+    """CPU tensor ``x`` on ``dev`` with its strides and storage offset:
+    a view stays the same view of its base moved to the card."""
+    if x._base is None:
+        return x.to(dev)
+    return x._base.to(dev).as_strided(x.shape, x.stride(),
+                                      x.storage_offset())
+
+
 def check_ss_count(name: str, rows_a, rows_b, timed: bool = False,
-                   tag: str = "(a)") -> dict:
+                   tag: str = "(a)", acc0=None) -> dict:
     """ss_count (``ss_counts_acc``) against its plain twin
     ``ss_counts_compare`` on the card, exact, from a non-zero tally (the
-    kernel adds in place); with ``timed`` the kernel's ms warm (CUDA
-    events, mean of 5 after one warm-up) and L2 cold (mean of 3), and the
-    twin's ms (one run)."""
+    kernel adds in place; ``acc0``, else a seeded one); with ``timed`` the
+    kernel's ms warm (CUDA events, mean of 5 after one warm-up) and L2
+    cold (mean of 3), and the twin's ms (one run)."""
     import torch
 
     from babble_tpu_torch.ops.ss import ss_counts_acc, ss_counts_compare
@@ -3261,10 +3489,14 @@ def check_ss_count(name: str, rows_a, rows_b, timed: bool = False,
     b3 = rows_b if rows_b.dim() == 3 else rows_b[None]
     g, na, w = a3.shape
     nb = b3.shape[1]
-    acc0 = torch.arange(na * nb, device=rows_a.device,
-                        dtype=torch.int32).reshape(na, nb) % 7
+    if acc0 is None:
+        acc0 = torch.arange(na * nb, device=rows_a.device,
+                            dtype=torch.int32).reshape(na, nb) % 7
+    before = ss_counts_acc.launches
     got = ss_counts_acc(rows_a, rows_b, acc0.clone())
     torch.cuda.synchronize()
+    if ss_counts_acc.launches != before + 1:
+        raise AssertionError(f"ss_count ({name}) was not one counted launch")
     t0 = time.perf_counter()
     want = acc0.clone()
     for c in range(g):
@@ -3289,8 +3521,9 @@ def check_ss_count(name: str, rows_a, rows_b, timed: bool = False,
             lambda: ss_counts_acc(rows_a, rows_b, acc), reps=3)
         line += (f"; kernel {row['ms']:.3f} ms warm, {row['ms_cold']:.3f} "
                  f"ms L2 cold (CUDA events, means of 5 and 3); bound "
-                 f"{bound:.3f} ms ({by}: compares on the ALU pipe, adds "
-                 f"on the FMA pipe); bound / warm {bound / row['ms']:.3f}")
+                 f"{bound:.3f} ms ({by}: {4 // rows_a.element_size()} "
+                 f"pairs a 32-bit word pair, a word pair a lane operation "
+                 f"of one pipe); bound / warm {bound / row['ms']:.3f}")
     print(line, flush=True)
     return row
 
@@ -3380,19 +3613,14 @@ def phase_wide(dev, card: str) -> dict:
     from babble_tpu_torch.store import load_checkpoint, save_checkpoint
 
     t_phase = time.perf_counter()
-    # (a) the kernel against its twin: every type, ragged rows and
-    # columns, the -1 floor and the fd_inf sentinel, one block and stacked
+    # (a) the kernel against its twin: every type, the cases of
+    # tests/test_torch_wide.py's card test (ragged, odd widths, extremes,
+    # gathered rows and strided views, stacked), each from a non-zero tally
     gen = torch.Generator().manual_seed(11)
-    for dt, inf in ((torch.int8, 127), (torch.int16, 32767),
-                    (torch.int32, 2**31 - 1)):
-        for g, na, nb, w in ((1, 65, 63, 1), (1, 1000, 77, 1667),
-                             (3, 130, 257, 333), (1, 64, 64, 64)):
-            a = torch.randint(-1, 110, (g, na, w), generator=gen).to(dt)
-            b = torch.randint(-1, 120, (g, nb, w), generator=gen).to(dt)
-            b[b >= 110] = inf
-            a, b = a.to(dev), b.to(dev)
-            check_ss_count("ragged", a[0] if g == 1 else a,
-                           b[0] if g == 1 else b)
+    for dt in (torch.int8, torch.int16, torch.int32):
+        for name, a, b, acc0 in ss_count_cases(dt, gen):
+            check_ss_count(name, card_view(a, dev), card_view(b, dev),
+                           acc0=acc0.to(dev))
     # bench's config-5 block, seeded rows with the sentinels
     rows, w = WIDE_INT8_BLOCK
     a = torch.randint(-1, 100, (rows, w), generator=gen)
@@ -3401,6 +3629,13 @@ def phase_wide(dev, card: str) -> dict:
     row8 = check_ss_count("config-5 block, seeded rows",
                           a.to(torch.int8).to(dev), b.to(torch.int8).to(dev),
                           timed=True)
+    # config 3's int32 shape (one block of 1,024 creators, 1,024 rows)
+    n3 = WIDE_FULL["n"]
+    a = torch.randint(-1, 140, (n3, n3), generator=gen, dtype=torch.int32)
+    b = torch.randint(-1, 150, (n3, n3), generator=gen, dtype=torch.int32)
+    b[b >= 140] = 2**31 - 1
+    row32 = check_ss_count("config-3 shape, seeded rows", a.to(dev),
+                           b.to(dev), timed=True)
     del a, b
 
     # (b) runs held to the JAX package: BASELINE config 3 through the
@@ -3600,6 +3835,8 @@ def phase_wide(dev, card: str) -> dict:
         "int8_block_ms": row8["ms"], "int8_block_ms_cold": row8["ms_cold"],
         "int8_block_plain_ms": row8["plain_ms"],
         "int8_block_bound_ms": row8["bound_ms"],
+        "int32_config3_ms": row32["ms"],
+        "int32_config3_bound_ms": row32["bound_ms"],
     }
 
 
@@ -3622,6 +3859,7 @@ def main() -> int:
     for name, text in logs.items():
         print(f"[build] {name}:\n{text.strip()}", flush=True)
     kernel_resources()
+    kernel_sass(cuda_build.library_path("ss_count"), "ss_count", "ss_count")
 
     row = phase_kernel(dev)
     launches, step_ms, out, cfg, dag, ingested = phase_slice(dev, card)

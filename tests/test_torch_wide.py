@@ -177,35 +177,172 @@ def test_ss_counts_acc_plain_twin():
     assert pss.ss_counts_acc.launches == 0
 
 
+@pytest.mark.parametrize("dt", [torch.int8, torch.int16])
+def test_padded_rows_leave_the_count_unchanged(dt):
+    """The packed kernel's layout (``padded_rows``): rows padded to 16
+    bytes with the type's minimum on the A side and its maximum on the B
+    side count nothing, at widths 1, 3, 527 and 1,667, with the type's
+    minimum and maximum present among the real values on both sides,
+    over gathered rows and a strided view."""
+    info = torch.iinfo(dt)
+    gen = np.random.default_rng(12)
+    for w in (1, 3, 527, 1667):
+        vals = gen.integers(info.min, info.max + 1, (2, 19, w + 5))
+        vals[:, :3, :2] = info.min
+        vals[:, 3:6, :2] = info.max
+        vals[:, 6:9, -2:] = info.max
+        vals[:, 9:12, -2:] = info.min
+        full = torch.from_numpy(vals).to(dt)
+        a = full[:, :, 5:]                                    # strided view
+        b = full[:, torch.tensor([18, 3, 3, 0, 11, 7, 9]), :w]  # gathered
+        pa, pb = pss.padded_rows(a, "a"), pss.padded_rows(b, "b")
+        per16 = 16 // a.element_size()
+        assert pa.shape[2] == pb.shape[2] == -(-w // per16) * per16
+        assert pa.shape[:2] == a.shape[:2] and pb.shape[:2] == b.shape[:2]
+        assert torch.equal(pa[..., :w], a) and torch.equal(pb[..., :w], b)
+        assert (pa[..., w:] == info.min).all()
+        assert (pb[..., w:] == info.max).all()
+        for c in range(2):
+            assert torch.equal(pss.ss_counts_compare(pa[c], pb[c]),
+                               pss.ss_counts_compare(a[c], b[c])), (w, c)
+
+
 @pytest.mark.gpu
 def test_ss_count_kernel_equals_its_twin_on_the_card():
     """``csrc/ss_count.cu`` against ``ss_counts_compare`` on the card,
-    exactly, at every coordinate type with ragged rows and columns and
-    the -1 / fd_inf sentinels present, one block and stacked."""
+    exactly, from a non-zero starting tally, at every coordinate type:
+    ragged rows and columns with the -1 / fd_inf sentinels; widths that
+    are not a multiple of 4 or of 16 bytes (1, 3, 13, 22, 37, 333, 527,
+    1,667); rows and columns under one 128 x 128 tile and not a multiple
+    of it; stacked G = 2, 3, 4; the type's minimum and maximum on both
+    sides (la = max against fd = min and the reverse); gathered rows
+    with a row stride off a 4-byte boundary and strided views.  Every
+    call is one counted launch, and columns that are not contiguous
+    raise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    import chip_smoke
+
     gen = torch.Generator().manual_seed(7)
-    for dt, inf in ((torch.int8, 127), (torch.int16, 32767),
-                    (torch.int32, 2**31 - 1)):
-        for g, A, B, w in ((1, 65, 63, 1), (1, 130, 257, 1667),
-                           (3, 1000, 77, 333), (2, 64, 64, 64)):
-            a = torch.randint(-1, 110, (g, A, w), generator=gen).to(dt)
-            b = torch.randint(-1, 120, (g, B, w), generator=gen).to(dt)
-            b[b >= 110] = inf
-            acc0 = torch.randint(0, 5, (A, B), generator=gen,
-                                 dtype=torch.int32)
+    dev = torch.device("cuda")
+    for dt in (torch.int8, torch.int16, torch.int32):
+        for name, a, b, acc0 in chip_smoke.ss_count_cases(dt, gen):
             want = acc0.clone()
-            for c in range(g):
-                want += pss.ss_counts_compare(a[c], b[c])
+            a3 = a if a.dim() == 3 else a[None]
+            b3 = b if b.dim() == 3 else b[None]
+            for c in range(a3.shape[0]):
+                want += pss.ss_counts_compare(a3[c], b3[c])
+            ca, cb = chip_smoke.card_view(a, dev), chip_smoke.card_view(b, dev)
+            assert ca.stride() == a.stride()
             before = pss.ss_counts_acc.launches
-            got = pss.ss_counts_acc(a.cuda(), b.cuda(), acc0.cuda())
+            got = pss.ss_counts_acc(ca, cb, acc0.cuda())
             torch.cuda.synchronize()
             assert pss.ss_counts_acc.launches == before + 1
-            assert torch.equal(got.cpu(), want), (dt, g, A, B, w)
+            assert torch.equal(got.cpu(), want), (dt, name)
+    A, B = a.shape[-2], b.shape[-2]
     with pytest.raises(ValueError):
         pss.ss_counts_acc(a.cuda()[..., ::2], b.cuda()[..., ::2],
                           torch.zeros((A, B), dtype=torch.int32,
                                       device="cuda"))
+
+
+@pytest.mark.parametrize("dt", [torch.int8, torch.int16, torch.int32])
+def test_ss_count_cases_hold_on_the_cpu_twin(dt):
+    """chip_smoke.py's ``ss_count_cases`` (the card test's and phase
+    12(a)'s cases): each names its shape, keeps the strides it was built
+    with (gathered rows with a row stride off 4 bytes, strided views),
+    and on the CPU ``ss_counts_acc`` adds exactly ``sum_g
+    ss_counts_compare`` to its starting tally; for int8 and int16 the
+    packed kernel's padded rows count the same."""
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(7)
+    cases = chip_smoke.ss_count_cases(dt, gen)
+    assert len(cases) == 13
+    strides = {name: (a.stride(), b.stride()) for name, a, b, _ in cases}
+    assert strides["gathered rows 190x170x527"] == ((527, 1), (527, 1))
+    assert strides["strided views 300x150x530"] == ((531, 1), (1062, 1))
+    for name, a, b, acc0 in cases:
+        a3 = a if a.dim() == 3 else a[None]
+        b3 = b if b.dim() == 3 else b[None]
+        want = acc0.clone()
+        for c in range(a3.shape[0]):
+            want += pss.ss_counts_compare(a3[c], b3[c])
+        assert torch.equal(pss.ss_counts_acc(a, b, acc0.clone()), want), name
+        assert chip_smoke.card_view(a, torch.device(CPU)).stride() == \
+            a.stride()
+        if dt != torch.int32:
+            pa, pb = pss.padded_rows(a3, "a"), pss.padded_rows(b3, "b")
+            got = acc0.clone()
+            for c in range(a3.shape[0]):
+                got += pss.ss_counts_compare(pa[c], pb[c])
+            assert torch.equal(got, want), name
+
+
+def test_chip_smokes_ss_count_bound():
+    """``chip_smoke.ss_count_bound`` counts one 32-bit word pair (4 int8,
+    2 int16 or 1 int32 pairs) a lane operation of one pipe at 64 a clock
+    an SM: 1.575 ms at the 10k run's 10,000 x 10,000 x 527 int16 shape,
+    2.491 ms at bench's 1,667-wide int8 block, 3.151 ms for the run's
+    shape in int32; the bytes bound only where the rows are few."""
+    import chip_smoke
+
+    def ms(*args):
+        t, by = chip_smoke.ss_count_bound(*args)
+        return round(t, 3), by
+
+    assert ms(1, 10_000, 10_000, 527, 2) == (1.575, "operations")
+    assert ms(1, 10_000, 10_000, 1667, 1) == (2.491, "operations")
+    assert ms(1, 10_000, 10_000, 527, 4) == (3.151, "operations")
+    assert ms(19, 10_000, 10_000, 527, 2) == (29.931, "operations")
+    assert ms(1, 1, 1, 1 << 20, 1)[1] == "bytes"
+
+
+_SASS = """
+\t\tFunction : _Z6kernelv
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;  /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe20000000800 */
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   IMAD.IADD R8, R4, 0x1, R5 ;
+        /*0030*/                   IADD3 R9, R4, R6, -0x7fff8000 ;
+        /*0040*/                   LOP3.LUT R10, R7, R6, R8, 0xe8, !PT ;
+        /*0050*/                   IDP.4A.U8.U8 R11, R10, UR4, R11 ;
+        /*0060*/              @P0 BRA 0x10 ;
+        /*0070*/                   IMAD.MOV.U32 R3, RZ, RZ, R2 ;
+        /*0080*/              @!P1 BRA 0x0 ;
+        /*0090*/                   EXIT ;
+\t\tFunction : _Z5otherv
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_chip_smokes_sass_reader_finds_the_inner_loop(monkeypatch, capsys):
+    """``chip_smoke.sass_listing`` reads ``cuobjdump -sass``: opcodes
+    without modifiers but IMAD's, predicates skipped, branch targets;
+    ``kernel_sass`` reports the backward branch's body densest in IDP,
+    per IDP."""
+    import chip_smoke
+
+    class Done:
+        stdout = _SASS
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda *a, **k: Done())
+    from babble_tpu_torch import cuda_build
+
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: "/cuda/bin/nvcc")
+    got = chip_smoke.sass_listing("lib.so", "kernel")
+    assert list(got) == ["_Z6kernelv"]
+    assert [op for _, op, _ in got["_Z6kernelv"]] == [
+        "LDC", "LDS", "IMAD.IADD", "IADD3", "LOP3", "IDP", "BRA",
+        "IMAD.MOV", "BRA", "EXIT"]
+    assert got["_Z6kernelv"][6] == (0x60, "BRA", 0x10)
+    chip_smoke.kernel_sass("lib.so", "kernel", "t")
+    out = capsys.readouterr().out
+    assert "10 instructions; compare loop 6: LOP3 1, IADD3 1, " \
+        "IMAD.IADD 1, IDP 1, LDS 1, BRA 1; per IDP: 6.000 instructions, " \
+        "ALU pipe 2.000, FMA pipe 2.000, LDS 1.000" in out
 
 
 # ----------------------------------------------------------------------
