@@ -26,7 +26,11 @@ byzantine DAG the unfused ``[E+1, B, N]`` grid is 1.1 TB.  So
 ``ss_counts`` launches ``csrc/fork_ss.cu`` (a hand-written tiled
 compare-count) on CUDA tensors and runs its plain twin
 ``ss_counts_plain`` (the same formula, chunked so that no temporary
-passes ``PLAIN_BUDGET_BYTES``) on CPU tensors.
+passes ``PLAIN_BUDGET_BYTES``) on CPU tensors.  The call sites hand it
+the batch's chain window (``SsWindow``), and where the window's
+coordinates fit 15 bits it compares window-relative int16 branch
+planes, two creators to a 32-bit word, with the detection mask folded
+into the viewer side (``viewer_planes``, ``witness_planes``).
 
 Device control: each ``lax.scan`` over the level schedule is a Python
 loop over the schedule rows, each ``while_loop`` a Python loop with one
@@ -459,12 +463,21 @@ class ForkDag:
 
 
 # ----------------------------------------------------------------------
-# the strongly-see compare-count: kernel and plain twin
+# the strongly-see compare-count: kernels and plain twin
 
 
 #: the largest k (branch slots per creator) ``csrc/fork_ss.cu`` is
 #: instantiated for; the plain twin takes any k
 FORK_SS_MAX_K = 8
+
+#: the largest ``s_cap`` whose window-relative coordinates the packed
+#: kernel takes: values 0 .. s_cap and the witness's 0x7FFF, 15 bits
+FORK_SS_NARROW_S_CAP = 32766
+
+#: the packed kernel's lane range and plane alignment (8 int16 creators,
+#: one 16-byte piece)
+LANE_MAX = 0x7FFF
+PLANE_ALIGN = 8
 
 
 def _check_ss_args(la_x, det_x, helper_w, k):
@@ -490,44 +503,172 @@ def _check_ss_args(la_x, det_x, helper_w, k):
         raise ValueError("ss_counts: tensors on different devices")
 
 
+class SsWindow:
+    """The chain window one pipeline phase's strongly-see counts read:
+    ``s_off`` (i32[B], the batch's absolute chain index of window
+    position 0 on each branch column) and ``s_cap``.  ``narrow`` says,
+    from ``s_cap`` alone (no device read), whether the packed kernel
+    takes the window's coordinates.
+
+    The viewer planes of the last ``(la_x, det_x)`` pair are kept, so
+    the closure's rounds, which share ``la`` and ``det``, narrow them
+    once: ``la_x`` and ``det_x`` must not change between the calls that
+    share a window."""
+
+    def __init__(self, s_off: torch.Tensor, s_cap: int):
+        self.s_off = s_off
+        self.s_cap = s_cap
+        self.narrow = s_cap <= FORK_SS_NARROW_S_CAP
+        self._viewer = None
+
+    def viewer(self, la_x, det_x, k: int) -> torch.Tensor:
+        got = self._viewer
+        if got is None or got[0] is not la_x or got[1] is not det_x \
+                or got[2] != k:
+            got = (la_x, det_x, k, viewer_planes(la_x, det_x, self.s_off, k))
+            self._viewer = got
+        return got[3]
+
+    def witness(self, helper_w, k: int) -> torch.Tensor:
+        return witness_planes(helper_w, self.s_off, k)
+
+
+def _planes(rows: torch.Tensor, k: int, fill: int) -> torch.Tensor:
+    """An int16 ``[G, R, K, Np]`` plane tensor for ``rows`` ``[G, R,
+    N*K]``, every entry ``fill`` (Np = N rounded up to PLANE_ALIGN)."""
+    g, r, b = rows.shape
+    n = b // k
+    np_ = -(-n // PLANE_ALIGN) * PLANE_ALIGN
+    return torch.full((g, r, k, np_), fill, dtype=torch.int16,
+                      device=rows.device)
+
+
+def _row_step(rows: torch.Tensor) -> int:
+    """Rows a chunk, so that a chunk's int32 temporaries stay within
+    ``PLAIN_BUDGET_BYTES`` / 8."""
+    g, _, b = rows.shape
+    return max(1, PLAIN_BUDGET_BYTES // 8 // max(1, g * b * 4))
+
+
+def viewer_planes(la_x: torch.Tensor, det_x: torch.Tensor,
+                  s_off: torch.Tensor, k: int) -> torch.Tensor:
+    """The viewer side as the packed kernel reads it: int16 ``[G, X, K,
+    Np]`` branch planes (``la_x`` column ``c*k + kk`` at plane ``kk``,
+    creator ``c``), window-relative and with NOT det folded in:
+
+        v = 0                                   where det[c] or la < s_off
+        v = min(la - s_off, LANE_MAX - 2) + 1   elsewhere
+
+    and 0 in the pad creators.  Exactness (with ``witness_planes``):
+    the batch puts every in-window chain index, so every ``la`` value at
+    or past ``s_off`` and every finite ``fd`` (hence ``helper``) value,
+    in ``[s_off, s_off + s_cap - 1]`` on its column (``build_arrays``:
+    a column's window holds at most ``s_cap`` consecutive indices from
+    ``s_off``; ``_fd_chains`` adds ``s_off`` to a window position).  For
+    ``s_cap <= FORK_SS_NARROW_S_CAP`` the ``min`` then never bites and,
+    per column,
+
+    - det or la < s_off: v = 0 < 1 <= h, false; and the count masks det,
+      and la < s_off <= hw is false as well;
+    - hw = INT32_MAX: h = LANE_MAX > s_cap >= v, false; and la <= s_off +
+      s_cap - 1 < INT32_MAX is false as well;
+    - otherwise v and h are la and hw shifted by the same s_off - 1, so
+      v >= h iff la >= hw.
+
+    A pad creator is 0 against the witness's LANE_MAX (and a real
+    witness value >= 1), and a real viewer value <= s_cap against
+    LANE_MAX: it counts nothing.  So the OR over the planes and the sum
+    over creators give ``ss_counts_plain``'s count bit for bit."""
+    g, x, b = la_x.shape
+    n = b // k
+    out = _planes(la_x, k, 0)
+    step = _row_step(la_x)
+    for x0 in range(0, x, step):
+        rel = la_x[:, x0:x0 + step] - s_off                    # [G, Xc, B]
+        rel.clamp_(-1, LANE_MAX - 2).add_(1)
+        xc = rel.shape[1]
+        rel = rel.view(g, xc, n, k)
+        rel.masked_fill_(det_x[:, x0:x0 + step, :, None].bool(), 0)
+        out[:, x0:x0 + step, :, :n] = rel.transpose(-1, -2)
+    return out
+
+
+def witness_planes(helper_w: torch.Tensor, s_off: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """The witness side as the packed kernel reads it: int16 ``[G, W, K,
+    Np]`` branch planes, ``h = min(max(hw - s_off, 0), LANE_MAX - 1) + 1``
+    (INT32_MAX becomes LANE_MAX), LANE_MAX in the pad creators (the
+    proof is ``viewer_planes``')."""
+    g, w, b = helper_w.shape
+    n = b // k
+    out = _planes(helper_w, k, LANE_MAX)
+    step = _row_step(helper_w)
+    for w0 in range(0, w, step):
+        rel = helper_w[:, w0:w0 + step] - s_off
+        rel.clamp_(0, LANE_MAX - 1).add_(1)
+        out[:, w0:w0 + step, :, :n] = \
+            rel.view(g, rel.shape[1], n, k).transpose(-1, -2)
+    return out
+
+
 def ss_counts(la_x: torch.Tensor, det_x: torch.Tensor,
-              helper_w: torch.Tensor, k: int) -> torch.Tensor:
+              helper_w: torch.Tensor, k: int,
+              window: Optional[SsWindow] = None) -> torch.Tensor:
     """Creator count of strongly-see middlemen, i32 ``[G, X, W]``:
 
         cnt[g, x, w] = sum_c [ (OR_k la_x[g, x, c*k+kk] >= helper_w[g, w, c*k+kk])
                                AND NOT det_x[g, x, c] ]
 
     (the JAX package's ``_ss_counts`` with the viewer and witness axes
-    written out).  On CUDA tensors this launches ``csrc/fork_ss.cu`` on
-    the current stream, counted in ``ss_counts.launches``, or raises; on
-    CPU tensors it runs ``ss_counts_plain``."""
+    written out).  With a ``window`` that narrows (the call sites hand
+    the batch's), the rows go to ``viewer_planes`` / ``witness_planes``
+    and the count is taken on those; without one, on the int32 rows.
+    On CUDA tensors this launches ``csrc/fork_ss.cu`` (the packed kernel
+    on the planes, the int32 kernel otherwise) on the current stream,
+    counted in ``ss_counts.launches``, or raises; on CPU tensors it runs
+    the plain twin (``ss_counts_planes_plain`` on the planes,
+    ``ss_counts_plain`` otherwise)."""
     _check_ss_args(la_x, det_x, helper_w, k)
+    narrow = window is not None and window.narrow
+    if narrow and window.s_off.device != la_x.device:
+        raise ValueError("ss_counts: the window's s_off is on "
+                         f"{window.s_off.device}, the rows on {la_x.device}")
     if la_x.device.type == "cpu":
-        return ss_counts_plain(la_x, det_x, helper_w, k)
-    return _launch_fork_ss(la_x, det_x, helper_w, k)
+        if not narrow:
+            return ss_counts_plain(la_x, det_x, helper_w, k)
+        return ss_counts_planes_plain(window.viewer(la_x, det_x, k),
+                                      window.witness(helper_w, k), k)
+    if la_x.device.type != "cuda":
+        raise ValueError(f"fork_ss: the kernel needs CUDA tensors, got "
+                         f"{la_x.device}")
+    if k > FORK_SS_MAX_K:
+        raise ValueError(f"fork_ss: k={k} branch slots, the kernel is built "
+                         f"for k in [1, {FORK_SS_MAX_K}]")
+    if not narrow:
+        return _launch_fork_ss(la_x, det_x, helper_w, k)
+    return _launch_fork_ss_packed(window.viewer(la_x, det_x, k),
+                                  window.witness(helper_w, k), k)
 
 
 ss_counts.launches = 0
 
 
 def _fork_ss_lib() -> ctypes.CDLL:
-    """The built ``csrc/fork_ss.cu``, its C function declared."""
+    """The built ``csrc/fork_ss.cu``, its C functions declared."""
     from .. import cuda_build
 
     lib = cuda_build.load("fork_ss")
     lib.fork_ss_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.fork_ss_launch.restype = ctypes.c_int
+    lib.fork_ss_packed_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.fork_ss_packed_launch.restype = ctypes.c_int
     return lib
 
 
 def _launch_fork_ss(la_x, det_x, helper_w, k):
     dev = la_x.device
-    if dev.type != "cuda":
-        raise ValueError(f"fork_ss: the kernel needs CUDA tensors, got {dev}")
-    if k > FORK_SS_MAX_K:
-        raise ValueError(f"fork_ss: k={k} branch slots, the kernel is built "
-                         f"for k in [1, {FORK_SS_MAX_K}]")
     g, x, b = la_x.shape
     w, n = helper_w.shape[1], det_x.shape[2]
     out = torch.empty((g, x, w), dtype=I32, device=dev)
@@ -542,6 +683,36 @@ def _launch_fork_ss(la_x, det_x, helper_w, k):
                 out.data_ptr(), g, x, w, n, k, stream)
     if rc != 0:
         raise RuntimeError(f"fork_ss: kernel launch failed, cudaError_t {rc}")
+    ss_counts.launches += 1
+    return out
+
+
+def _launch_fork_ss_packed(view, wit, k):
+    """The packed kernel on ``viewer_planes`` / ``witness_planes``
+    output (contiguous int16 ``[G, X, K, Np]`` / ``[G, W, K, Np]``)."""
+    dev = view.device
+    g, x, kp, np_ = view.shape
+    w = wit.shape[1]
+    if view.dtype != torch.int16 or wit.dtype != torch.int16 \
+            or not (view.is_contiguous() and wit.is_contiguous()) \
+            or kp != k or np_ % PLANE_ALIGN or wit.device != dev \
+            or tuple(wit.shape) != (g, w, k, np_):
+        raise ValueError(
+            f"fork_ss: planes must be contiguous int16 [G, X, {k}, Np] and "
+            f"[G, W, {k}, Np] with Np a multiple of {PLANE_ALIGN}, got "
+            f"{view.dtype} {tuple(view.shape)} and {wit.dtype} "
+            f"{tuple(wit.shape)}")
+    out = torch.empty((g, x, w), dtype=I32, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = _fork_ss_lib().fork_ss_packed_launch
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(view.data_ptr(), wit.data_ptr(), out.data_ptr(), g, x, w,
+                np_ // 2, k, stream)
+    if rc != 0:
+        raise RuntimeError(f"fork_ss: packed kernel launch failed, "
+                           f"cudaError_t {rc}")
     ss_counts.launches += 1
     return out
 
@@ -565,6 +736,19 @@ def ss_counts_plain(la_x: torch.Tensor, det_x: torch.Tensor,
         ok &= nd[:, x0:x0 + step, None, :]
         out[:, x0:x0 + step] = ok.sum(-1, dtype=I32)
     return out
+
+
+def ss_counts_planes_plain(view: torch.Tensor, wit: torch.Tensor,
+                           k: int) -> torch.Tensor:
+    """The packed kernel's plain twin: ``ss_counts_plain`` on the int16
+    branch planes (laid back out as column ``c*k + kk``, NOT det already
+    folded in, so no creator is masked)."""
+    g, x, _, np_ = view.shape
+    w = wit.shape[1]
+    nodet = torch.zeros((g, x, np_), dtype=torch.bool, device=view.device)
+    return ss_counts_plain(view.transpose(-1, -2).reshape(g, x, np_ * k),
+                           nodet,
+                           wit.transpose(-1, -2).reshape(g, w, np_ * k), k)
 
 
 # ----------------------------------------------------------------------
@@ -753,6 +937,9 @@ def _rounds_closure(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
     unassigned = valid_e & ~seeded
     r, passes = 0, 0
     alive = True
+    # every round counts against the same la and det: narrowed once
+    win = SsWindow(b.s_off, s_cap)
+    la_g, det_g = la[None], det[None]
     while alive and r < r_cap:
         # candidate frontier: first chain position with round >= r
         rnd_chain = torch.where(live_chain, rnd[cex], -1)
@@ -763,7 +950,7 @@ def _rounds_closure(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
         wsx = sanitize(torch.where(valid_w, ws, -1), cfg.e_cap).long()
         hw = torch.where(valid_w[:, None], helper[wsx], INT32_MAX)  # [B, B]
 
-        ss_cnt = ss(la[None], det[None], hw[None].contiguous(), k)[0]
+        ss_cnt = ss(la_g, det_g, hw[None].contiguous(), k, window=win)[0]
         ss_c = _or_creators((ss_cnt >= sm) & valid_w[None, :], k)
         pr_gt = torch.maximum(rnd[spx], rnd[opx]) > r
         S = unassigned & ((ss_c.sum(-1) >= sm) | pr_gt)
@@ -812,6 +999,7 @@ def _rounds_scan(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
     max_round = torch.full((), -1, dtype=I32, device=dev)
     sp_s = sanitize(b.sp, cfg.e_cap).long()
     op_s = sanitize(b.op, cfg.e_cap).long()
+    win = SsWindow(b.s_off, cfg.s_cap)
 
     for t in range(b.sched.shape[0]):
         idx = b.sched[t]
@@ -825,7 +1013,8 @@ def _rounds_scan(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
         valid_w = wsl >= 0
         hw = helper[sanitize(wsl, cfg.e_cap).long()]           # [Bt, B, B]
         hw = torch.where(valid_w[:, :, None], hw, INT32_MAX)
-        ss_cnt = ss(la[idx_s][:, None, :], det[idx_s][:, None, :], hw, k)
+        ss_cnt = ss(la[idx_s][:, None, :], det[idx_s][:, None, :], hw, k,
+                    window=win)
         ss_c = _or_creators((ss_cnt[:, 0, :] >= sm) & valid_w, k)  # [Bt, N]
         inc = ss_c.sum(-1) >= sm
         r_x = pr + inc.to(I32)
@@ -876,7 +1065,8 @@ def _fame(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor, det: torch.Tensor,
                                                      device=dev)])
 
     # ss_next[r, a, w]: round r+1 witness a strongly sees round r witness w
-    ss_cnt = ss(law_next, detw_next, hw, k)                    # [R, A, W]
+    ss_cnt = ss(law_next, detw_next, hw, k,
+                window=SsWindow(b.s_off, cfg.s_cap))           # [R, A, W]
     ss_next = ((ss_cnt >= sm) & valid_next[:, :, None]
                & valid_w[:, None, :]).to(F32)
     tot_next = ss_next.sum(-1)
@@ -990,10 +1180,12 @@ def _order(cfg: ForkConfig, b: ForkBatch, fd: torch.Tensor,
 def fork_pipeline(cfg: ForkConfig, b: ForkBatch, ss=ss_counts,
                   stats: Optional[dict] = None) -> ForkOut:
     """The whole fork-aware pipeline on ``b``'s device.  ``ss`` is the
-    strongly-see compare-count (``ss_counts``, which launches the kernel
-    on CUDA tensors; ``ss_counts_plain`` for the plain run); ``stats``,
-    if given, receives the closure's round and pass counts and the fd
-    strategy."""
+    strongly-see compare-count, called as ``ss(la_x, det_x, helper_w,
+    k, window=SsWindow(b.s_off, cfg.s_cap))``: ``ss_counts``, which
+    launches the kernels on CUDA tensors, or, for the plain run, a
+    function that passes the first four to ``ss_counts_plain``;
+    ``stats``, if given, receives the closure's round and pass counts
+    and the fd strategy."""
     la = _la_scan(cfg, b)
     det = _detect(cfg, b, la)
     first_det = _first_det(cfg, b, det)

@@ -13,9 +13,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    (``la_walk.cu``, ``fork_ss.cu`` and ``ss_count.cu``, one nvcc per
    source, all started together) and print ``-Xptxas -v``, then la_walk's registers and
    shared memory as the runtime sees them (static staging plus the
-   dynamic int16 column), and ss_count's SASS (``cuobjdump -sass``): each
-   kernel's instructions and its innermost loop's by opcode, per dp4a
-   (one 32-bit word pair) in the packed kernels.
+   dynamic int16 column), and ss_count's and fork_ss's SASS
+   (``cuobjdump -sass``; fork_ss's packed and int32 kernels at K = 2):
+   each kernel's instructions and its innermost loop's by opcode, per
+   dp4a (one 32-bit word pair in ss_count, one word of two creators'
+   OR'd results in fork_ss) in the packed kernels, per ISETP in the
+   int32 ones.
 3. kernel — each kernel's wrapper on the card against its plain torch
    version on the same card inputs, at the main path's shapes (the
    64 x 65,536 slice DAG), on one small DAG, at the largest size the
@@ -205,12 +208,21 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    (``ss_counts_plain``), bit for bit.  It prints the host build, the
    first and warm runs with events ordered/s, the closure's round and
    pass counts, the fd strategy and peak device memory.  (a) fork_ss
-   against its plain twin, exact, at that run's two call shapes (the
+   against its plain twin ``ss_counts_plain`` (int32, no narrowing),
+   exact, one counted launch a call, at that run's two call shapes (the
    rounds closure's 1 x 131,073 x 2,048 and the fame's 16 x 2,048 x
-   2,048, inputs rebuilt from the run's outputs), with ms warm and L2
-   cold by CUDA events, the plain ms and the bound, the kernel's share
-   of the warm pipeline; then one small DAG's two shapes and ragged
-   tiles (``BYZ_RAGGED``).  (c) ``BYZ_MID`` against the JAX package's
+   2,048, inputs and the batch's window rebuilt from the run's
+   outputs), with ms warm and L2 cold by CUDA events of the packed
+   kernel alone, the wrapper with both narrowings and with the viewer
+   planes kept (as the closure's later rounds run it), the int32 kernel
+   on the same call, the viewer narrowing alone, the plain ms, the
+   bound (``ss_bound``) and the int32 figure, and fork_ss's share of
+   the warm pipeline; then one small DAG's two shapes, and
+   ``FORK_SS_CASES`` (``fork_ss_case``: windows past 2^15 with
+   evicted-looking ancestors, detected creators, INF witnesses, ragged
+   N, K = 1, 2, 3 and 8, every creator detected, all-INF witness rows,
+   s_cap at the int16 edge) through the packed path and, without a
+   window, the int32 path.  (c) ``BYZ_MID`` against the JAX package's
    counts and digest (``BYZ_EXPECT``, made on the CPU by
    ``JAX_PLATFORMS=cpu python -m tests.test_torch_forks``).  (d)
    fork-attack at seeds 1 and 2 through the deterministic runner's
@@ -633,11 +645,19 @@ BYZ_ENGINE_EXPECT = {
     "commit_digest":
         "1f54707866494609ee01dd5474f733fbda235618e56882b92ce8ccef2c027189",
 }
-# (a) one small DAG, and ragged tiles (X, W and N off the 64 x 64 tile
-# and the creator chunk; K = 3 and 8 as well as 2): (g, x, w, n, k)
+# (a) one small DAG, and fork_ss_case's inputs: ragged tiles (X, W
+# and N off the tiles and the 8-creator planes; K = 1, 3 and 8 as well
+# as 2) and the edges: (name, g, x, w, n, k, fork_ss_case options)
 BYZ_SMALL = dict(n=32, e=2048, seed=11, fork_rate=0.02)
-BYZ_RAGGED = [(3, 1000, 77, 37, 3), (2, 4097, 130, 1025, 2),
-              (1, 65, 63, 9, 8)]
+FORK_SS_CASES = [
+    ("ragged k=3", 3, 1000, 77, 37, 3, {}),
+    ("ragged k=2", 2, 4097, 130, 1025, 2, {}),
+    ("ragged k=8", 1, 65, 63, 9, 8, {}),
+    ("ragged k=1", 2, 300, 129, 13, 1, {}),
+    ("every creator detected", 1, 200, 140, 20, 2, dict(det_rate=1.0)),
+    ("all-INF witness rows", 2, 150, 90, 11, 2, dict(inf_rate=1.0)),
+    ("s_cap at the int16 edge", 1, 257, 131, 33, 2, dict(s_cap="edge")),
+]
 
 # phase 12: the wide-N pipeline (ops/wide.py, ops/stream.py, the
 # ss_count kernel, WideHashgraph).  (b) BASELINE config 3 through the
@@ -3096,31 +3116,36 @@ def wide_engine_summary(cores, ckpt_path: str) -> dict:
 
 
 def ss_bound(g: int, x: int, w: int, n: int, k: int):
-    """The least time one fork_ss call could take on the card: the larger
-    of its operations and its bytes (la, hw, det read once, the counts
-    written once) over the memory rate.  The function needs X*W*B
-    compares (B = N*K; the OR over K folds into the compare's predicate)
-    and X*W*N accumulations (the not-detected mask folds into la as the
-    tile is staged, X*N work): the compares on the ALU pipe, the adds as
-    IMAD on the FMA pipe beside them, all within the issue rate.
-    Returns (ms, "operations" or "bytes", ms with the adds on the ALU
-    pipe too)."""
+    """The least time one fork_ss call could take on the card, for any
+    design that reads the window-relative 16-bit coordinates the packed
+    kernel reads: the larger of its operations and its bytes (la, hw,
+    det read once, the counts written once) over the memory rate.  A
+    lane operation reads at most one 32-bit word of each side, two
+    creators' branch k; each word pair needs one operation that compares
+    it, and each word of results OR'd over the K planes one that counts
+    it: g*x*w*ceil(n/2)*(k + 1) lane operations, at most 128 a clock an
+    SM (``PEAK_ISSUE_OPS_S``).  Returns (ms, "operations" or "bytes",
+    the int32 figure in ms: X*W*B compares on the ALU pipe with the
+    X*W*N adds beside them on the FMA pipe, one coordinate a word)."""
     b = n * k
-    cmp, add = g * x * w * b, g * x * w * n
+    words = -(-n // 2)
+    t_ops = g * x * w * words * (k + 1) / PEAK_ISSUE_OPS_S
     nbytes = 4 * g * (x * b + w * b + x * w) + g * x * n
-    t_ops = max(cmp / PEAK_INT32_OPS_S, add / PEAK_IMAD_OPS_S,
-                (cmp + add) / PEAK_ISSUE_OPS_S)
     t_bytes = nbytes / PEAK_BYTES_S
-    one_pipe = max((cmp + add) / PEAK_INT32_OPS_S, t_bytes)
+    cmp, add = g * x * w * b, g * x * w * n
+    t32 = max(cmp / PEAK_INT32_OPS_S, add / PEAK_IMAD_OPS_S,
+              (cmp + add) / PEAK_ISSUE_OPS_S)
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", one_pipe * 1e3)
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(t32, t_bytes) * 1e3)
 
 
 def byz_call_inputs(cfg, batch, out):
     """The two fork_ss call shapes of a pipeline run, rebuilt from its
-    outputs: the rounds closure's (every event against one candidate
-    witness per branch, here round 1's witness row) and the fame's
-    (every round's witnesses against the previous round's)."""
+    outputs, each with the batch's window as the call sites hand it: the
+    rounds closure's (every event against one candidate witness per
+    branch, here round 1's witness row) and the fame's (every round's
+    witnesses against the previous round's)."""
     import torch
 
     from babble_tpu_torch.ops import forks as F
@@ -3131,58 +3156,223 @@ def byz_call_inputs(cfg, batch, out):
     row = out.wslot[min(1, cfg.r_cap - 1)]
     hw = torch.where((row >= 0)[:, None],
                      helper[sanitize(row, cfg.e_cap).long()], INT32_MAX)
-    closure = (out.la[None], out.det[None], hw[None].contiguous(), cfg.k)
+    closure = (out.la[None], out.det[None], hw[None].contiguous(), cfg.k,
+               F.SsWindow(batch.s_off, cfg.s_cap))
     wsl = out.wslot[:cfg.r_cap]
     ws = sanitize(wsl, cfg.e_cap).long()
     hww = torch.where((wsl >= 0)[:, :, None], helper[ws], INT32_MAX)
     law, detw = out.la[ws], out.det[ws]
     fame = (torch.cat([law[1:], torch.full_like(law[:1], -1)]),
             torch.cat([detw[1:], torch.zeros_like(detw[:1])]),
-            hww.contiguous(), cfg.k)
+            hww.contiguous(), cfg.k, F.SsWindow(batch.s_off, cfg.s_cap))
     return {"closure": closure, "fame": fame}
 
 
-def check_fork_ss(name: str, args, timed: bool = False) -> dict:
-    """fork_ss against its plain twin on the card, exact; with ``timed``
-    the kernel's ms warm (CUDA events, mean of 5 after one warm-up) and
-    L2 cold (mean of 3), and the plain twin's ms (one run)."""
+def fork_ss_case(g: int, x: int, w: int, n: int, k: int, seed: int,
+                 det_rate: float = 0.2, inf_rate: float = 0.15,
+                 s_cap=64, device="cpu"):
+    """Seeded fork_ss inputs that keep the pipeline's window invariant
+    (every la value below its column's ``s_off`` or in ``[s_off, s_off +
+    s_cap - 1]``, every hw value there or INT32_MAX) with absolute
+    indices far outside int16: ``s_off`` 0 on every fourth column, past
+    40,000 on the next and anywhere below 70,000 on the rest; la -1,
+    evicted-looking (below ``s_off``) or in the window, the window's top
+    on every column of the last viewer row; hw in the window (its top on
+    the last witness row), INT32_MAX at ``inf_rate`` and on every column
+    of witness row 0; creators detected at ``det_rate`` and all of viewer
+    row 0's.  ``s_cap="edge"`` is the
+    largest the packed kernel takes (``FORK_SS_NARROW_S_CAP``).  Returns
+    ``(la, det, hw, s_off, s_cap)`` on ``device``."""
     import torch
 
-    from babble_tpu_torch.ops.forks import ss_counts, ss_counts_plain
+    from babble_tpu_torch.ops.forks import FORK_SS_NARROW_S_CAP
+    from babble_tpu_torch.ops.state import INT32_MAX
 
-    la, det, hw, k = args
+    if s_cap == "edge":
+        s_cap = FORK_SS_NARROW_S_CAP
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    b = n * k
+    s_off = ints(0, 70_000, (b,))
+    s_off[0::4] = 0
+    s_off[1::4] = ints(40_000, 70_000, (len(range(1, b, 4)),))
+    rel = ints(-3, s_cap, (g, x, b))
+    below = (s_off - ints(1, 1_000, (g, x, b))).clamp_(min=-1)
+    la = torch.where(rel >= 0, s_off + rel,
+                     torch.where(rel == -1, -1, below))
+    la[:, -1] = s_off + s_cap - 1                    # the window's top
+    hw = s_off + ints(0, s_cap, (g, w, b))
+    hw[:, -1] = s_off + s_cap - 1
+    inf = torch.rand((g, w, b), generator=gen, device=device) < inf_rate
+    inf[:, 0] = True
+    hw.masked_fill_(inf, INT32_MAX)
+    det = torch.rand((g, x, n), generator=gen, device=device) < det_rate
+    det[:, 0] = True
+    return la, det, hw, s_off, s_cap
+
+
+def plain_fork_ss(la_x, det_x, helper_w, k, window=None):
+    """The pipeline's ``ss`` for the plain-twin run: ``ss_counts_plain``
+    on the int32 rows, the window not used."""
+    from babble_tpu_torch.ops.forks import ss_counts_plain
+
+    return ss_counts_plain(la_x, det_x, helper_w, k)
+
+
+def check_fork_ss(name: str, args, timed: bool = False) -> dict:
+    """fork_ss (``ss_counts`` with the call's window, one counted launch)
+    against its plain twin ``ss_counts_plain`` on the int32 rows, on the
+    card, exact.  ``args`` is ``(la, det, hw, k, window or None)``.  With
+    ``timed`` (a window that narrows): ms warm (CUDA events, mean of 5
+    after one warm-up) and L2 cold (mean of 3) of the packed kernel
+    alone on the call's planes; the wrapper with both narrowings
+    (``call_ms``: a fresh window) and with the viewer planes kept
+    (``cached_ms``: the closure's later rounds); the int32 kernel on the
+    same rows (``int32_ms``); the viewer narrowing alone
+    (``viewer_ms``); and the plain twin's ms (one run)."""
+    import torch
+
+    from babble_tpu_torch.ops import forks as F
+
+    la, det, hw, k, win = args
     g, x, b = la.shape
     w, n = hw.shape[1], det.shape[2]
-    got = ss_counts(la, det, hw, k)
+    before = F.ss_counts.launches
+    got = F.ss_counts(la, det, hw, k, window=win)
     torch.cuda.synchronize()
+    if F.ss_counts.launches != before + 1:
+        raise AssertionError(f"fork_ss ({name}) was not one counted launch")
     t0 = time.perf_counter()
-    want = ss_counts_plain(la, det, hw, k)
+    want = F.ss_counts_plain(la, det, hw, k)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = int((got.long() - want.long()).abs().max().item()) \
         if got.numel() else 0
+    path = "packed" if win is not None and win.narrow else "int32"
     if not torch.equal(got, want):
-        raise AssertionError(f"fork_ss != ss_counts_plain ({name}, g={g} "
-                             f"x={x} w={w} n={n} k={k}): "
+        raise AssertionError(f"fork_ss ({path}) != ss_counts_plain ({name}, "
+                             f"g={g} x={x} w={w} n={n} k={k}): "
                              f"{int((got != want).sum())} entries differ")
-    bound, by, one_pipe = ss_bound(g, x, w, n, k)
-    line = (f"[byz] (a) fork_ss {name} g={g} x={x} w={w} n={n} k={k}: "
-            f"exact (max count {int(got.max()) if got.numel() else 0}); "
-            f"plain {plain_ms:.2f} ms")
+    bound, by, bound32 = ss_bound(g, x, w, n, k)
+    line = (f"[byz] (a) fork_ss {name} g={g} x={x} w={w} n={n} k={k}, "
+            f"{path}: exact (max count "
+            f"{int(got.max()) if got.numel() else 0}); plain "
+            f"{plain_ms:.2f} ms")
     row = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound,
-               bound_by=by)
+               bound_by=by, bound_int32_ms=bound32)
     if timed:
-        row["ms"] = cuda_ms(lambda: ss_counts(la, det, hw, k), reps=5)
-        row["ms_cold"] = cuda_ms_cold(lambda: ss_counts(la, det, hw, k),
-                                      reps=3)
-        line += (f"; kernel {row['ms']:.3f} ms warm, {row['ms_cold']:.3f} "
-                 f"ms L2 cold (CUDA events, means of 5 and 3); bound "
-                 f"{bound:.3f} ms ({by}); bound / warm "
-                 f"{bound / row['ms']:.3f}; with the adds on the ALU "
-                 f"pipe {one_pipe:.3f} ms, / warm "
-                 f"{one_pipe / row['ms']:.3f}")
+        view, wit = win.viewer(la, det, k), win.witness(hw, k)
+
+        def kernel():
+            return F._launch_fork_ss_packed(view, wit, k)
+
+        row["ms"] = cuda_ms(kernel, reps=5)
+        row["ms_cold"] = cuda_ms_cold(kernel, reps=3)
+        row["call_ms"] = cuda_ms(lambda: F.ss_counts(
+            la, det, hw, k, window=F.SsWindow(win.s_off, win.s_cap)), reps=5)
+        row["cached_ms"] = cuda_ms(
+            lambda: F.ss_counts(la, det, hw, k, window=win), reps=5)
+        row["int32_ms"] = cuda_ms(lambda: F.ss_counts(la, det, hw, k), reps=5)
+        row["viewer_ms"] = cuda_ms(
+            lambda: F.viewer_planes(la, det, win.s_off, k), reps=5)
+        line += (f"; packed kernel {row['ms']:.3f} ms warm, "
+                 f"{row['ms_cold']:.3f} ms L2 cold; wrapper "
+                 f"{row['call_ms']:.3f} ms with both narrowings, "
+                 f"{row['cached_ms']:.3f} with the viewer planes kept; "
+                 f"viewer narrowing {row['viewer_ms']:.3f} ms; int32 "
+                 f"kernel {row['int32_ms']:.3f} ms (CUDA events, means of "
+                 f"5, cold of 3); bound {bound:.3f} ms ({by}), bound / "
+                 f"warm {bound / row['ms']:.3f}; int32 figure "
+                 f"{bound32:.3f} ms, / warm {bound32 / row['ms']:.3f}")
     print(line, flush=True)
     return row
+
+
+def fork_ss_turns(other: str, card: str) -> dict:
+    """fork_ss against another source of it (``other``, a former version
+    of ``csrc/fork_ss.cu`` with the int32 C interface ``fork_ss_launch(la,
+    det, hw, out, G, X, W, N, K, stream)``), built here with the same nvcc
+    flags, timed in turns on this card: other, this, this, other, at the
+    1024 x 100k run's two call shapes (closure 1 x 131,073 x 2,048, fame
+    16 x 2,048 x 2,048; N = 1,024, K = 2) on ``fork_ss_case``'s seeded
+    inputs (a window past 2^15, s_cap 256 as the run's).  The two
+    versions must agree exactly.  ``this`` is the wrapper ``ss_counts``
+    with the window, its witness narrowing included and the viewer
+    planes kept from the warm-up, as the closure's rounds run it; the
+    viewer narrowing, once a pipeline phase, is timed beside it.  Prints
+    and returns each version's ms warm and L2 cold (CUDA events, means
+    of 5 and 3) and the shares of both bounds."""
+    import ctypes
+    import os
+    import tempfile
+
+    import torch
+
+    from babble_tpu_torch import cuda_build
+    from babble_tpu_torch.ops import forks as F
+
+    lib = os.path.join(tempfile.mkdtemp(), "libfork_ss_other.so")
+    built = subprocess.run(
+        [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, other],
+        capture_output=True, text=True, timeout=600)
+    if built.returncode != 0:
+        raise RuntimeError(f"building {other} failed:\n{built.stdout}"
+                           f"{built.stderr}")
+    print(f"[turns] built {other}", flush=True)
+    kernel_sass(lib, "fork_ss_kernelILi2E", "other")
+    fn = ctypes.CDLL(lib).fork_ss_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run_other(la, det, hw, k, out):
+        g, x, _ = la.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(la.data_ptr(), det.data_ptr(), hw.data_ptr(), out.data_ptr(),
+                g, x, hw.shape[1], det.shape[2], k, stream)
+        if rc:
+            raise RuntimeError(f"the other fork_ss failed: {rc}")
+        return out
+
+    out = {}
+    for label, g, x, w in (("closure shape", 1, 131_073, 2048),
+                           ("fame shape", 16, 2048, 2048)):
+        la, det, hw, s_off, s_cap = fork_ss_case(
+            g, x, w, 1024, 2, seed=13, s_cap=256, device="cuda")
+        win = F.SsWindow(s_off, s_cap)
+        res = torch.empty((g, x, w), dtype=torch.int32, device="cuda")
+        want = run_other(la, det, hw, 2, res)
+        got = F.ss_counts(la, det, hw, 2, window=win)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"fork_ss != the other version at {label}")
+        del got
+        bound, _, bound32 = ss_bound(g, x, w, 1024, 2)
+        times = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            f = (lambda: run_other(la, det, hw, 2, res)) if who == "other" \
+                else (lambda: F.ss_counts(la, det, hw, 2, window=win))
+            times[who].append((cuda_ms(f, reps=5), cuda_ms_cold(f, reps=3)))
+        viewer = cuda_ms(lambda: F.viewer_planes(la, det, s_off, 2), reps=3)
+        best = {who: min(t[0] for t in ts) for who, ts in times.items()}
+        out[label] = dict(times, bound_ms=bound, bound_int32_ms=bound32,
+                          viewer_ms=viewer)
+        fmt = lambda ts: "; ".join(f"{w_:.3f} warm / {c_:.3f} cold"
+                                   for w_, c_ in ts)
+        print(f"[turns] {label} ({g} x {x} x {w}, n 1024, k 2): other "
+              f"{fmt(times['other'])}; this {fmt(times['this'])} (viewer "
+              f"narrowing {viewer:.3f} ms once a phase); other / this "
+              f"{best['other'] / best['this']:.3f}; bound {bound:.3f} ms, "
+              f"/ warm: other {bound / best['other']:.3f}, this "
+              f"{bound / best['this']:.3f}; int32 figure {bound32:.3f} ms, "
+              f"/ warm: other {bound32 / best['other']:.3f}, this "
+              f"{bound32 / best['this']:.3f}; {card}", flush=True)
+        del la, det, hw, res, want, win
+    return out
 
 
 def byz_engine_round_trip(device: str, node_launches: int) -> None:
@@ -3288,7 +3478,7 @@ def phase_byzantine(dev, card: str) -> dict:
           f"({got['ordered'] / warm_ms * 1e3:,.0f} events ordered/s); "
           f"peak {peak / 2**30:.2f} GiB; {card}", flush=True)
     t0 = time.perf_counter()
-    plain = F.fork_pipeline(cfg, batch, ss=F.ss_counts_plain)
+    plain = F.fork_pipeline(cfg, batch, ss=plain_fork_ss)
     torch.cuda.synchronize()
     plain_run_ms = (time.perf_counter() - t0) * 1e3
     bad = [f for f in F.ForkOut._fields
@@ -3307,10 +3497,18 @@ def phase_byzantine(dev, card: str) -> dict:
     row_f = check_fork_ss("fame shape", calls["fame"], timed=True)
     n_fame = 1
     n_closure = launches - n_fame
-    share = (n_closure * row_c["ms"] + n_fame * row_f["ms"]) / warm_ms
-    print(f"[byz] (a) fork_ss share of the warm pipeline: {share:.3f} "
-          f"({n_closure} closure calls + {n_fame} fame call at their warm "
-          f"ms)", flush=True)
+    # the closure narrows la once and its witness rows every round; the
+    # fame narrows both sides once
+    spent = (row_c["call_ms"] + (n_closure - 1) * row_c["cached_ms"]
+             + n_fame * row_f["call_ms"])
+    kernels = n_closure * row_c["ms"] + n_fame * row_f["ms"]
+    print(f"[byz] (a) fork_ss share of the warm pipeline: {spent / warm_ms:.3f}"
+          f" with the narrowing ({spent:.1f} ms: {n_closure} closure calls, "
+          f"the first with the viewer narrowing, + {n_fame} fame call), "
+          f"{kernels / warm_ms:.3f} the packed kernel alone ({kernels:.1f} "
+          f"ms); the int32 kernel's would be "
+          f"{n_closure * row_c['int32_ms'] + n_fame * row_f['int32_ms']:.1f}"
+          f" ms", flush=True)
     del calls, out
     small = {k: v for k, v in BYZ_SMALL.items() if k not in ("n", "e")}
     scfg, sarr = random_byzantine_fork_arrays(BYZ_SMALL["n"], BYZ_SMALL["e"],
@@ -3319,15 +3517,12 @@ def phase_byzantine(dev, card: str) -> dict:
     sout = F.fork_pipeline(scfg, sb)
     for name, args in byz_call_inputs(scfg, sb, sout).items():
         check_fork_ss(f"small {name}", args)
-    gen = torch.Generator().manual_seed(3)
-    for g, x, w, n, k in BYZ_RAGGED:
-        la = torch.randint(-1, 40, (g, x, n * k), generator=gen,
-                           dtype=torch.int32)
-        hw = torch.randint(0, 45, (g, w, n * k), generator=gen,
-                           dtype=torch.int32)
-        hw[hw >= 40] = 2**31 - 1
-        det = torch.rand((g, x, n), generator=gen) < 0.2
-        check_fork_ss("ragged", (la.to(dev), det.to(dev), hw.to(dev), k))
+    for i, (name, g, x, w, n, k, opts) in enumerate(FORK_SS_CASES):
+        la, det, hw, s_off, s_cap = fork_ss_case(g, x, w, n, k, seed=i,
+                                                 **opts)
+        la, det, hw, s_off = (t.to(dev) for t in (la, det, hw, s_off))
+        check_fork_ss(name, (la, det, hw, k, F.SsWindow(s_off, s_cap)))
+        check_fork_ss(f"{name}, no window", (la, det, hw, k, None))
 
     # (c) the mid-size batch against the JAX package's counts and digest
     mid = {k: v for k, v in BYZ_MID.items() if k not in ("n", "e")}
@@ -3389,10 +3584,15 @@ def phase_byzantine(dev, card: str) -> dict:
         "replaces": "babble_tpu/ops/forks.py:649",
         "launches": launches, "max_abs_err": row_c["max_abs_err"],
         "ms": row_c["ms"], "ms_cold": row_c["ms_cold"],
-        "plain_ms": row_c["plain_ms"], "bound_ms": row_c["bound_ms"],
-        "bound_by": row_c["bound_by"], "library_ms": None,
-        "fame_ms": row_f["ms"], "fame_plain_ms": row_f["plain_ms"],
+        "call_ms": row_c["call_ms"], "cached_ms": row_c["cached_ms"],
+        "int32_ms": row_c["int32_ms"], "plain_ms": row_c["plain_ms"],
+        "bound_ms": row_c["bound_ms"], "bound_by": row_c["bound_by"],
+        "bound_int32_ms": row_c["bound_int32_ms"], "library_ms": None,
+        "fame_ms": row_f["ms"], "fame_call_ms": row_f["call_ms"],
+        "fame_int32_ms": row_f["int32_ms"],
+        "fame_plain_ms": row_f["plain_ms"],
         "fame_bound_ms": row_f["bound_ms"],
+        "fame_bound_int32_ms": row_f["bound_int32_ms"],
     }
 
 
@@ -3860,6 +4060,10 @@ def main() -> int:
         print(f"[build] {name}:\n{text.strip()}", flush=True)
     kernel_resources()
     kernel_sass(cuda_build.library_path("ss_count"), "ss_count", "ss_count")
+    kernel_sass(cuda_build.library_path("fork_ss"),
+                "fork_ss_packed_kernelILi2E", "fork_ss")
+    kernel_sass(cuda_build.library_path("fork_ss"), "fork_ss_kernelILi2E",
+                "fork_ss int32")
 
     row = phase_kernel(dev)
     launches, step_ms, out, cfg, dag, ingested = phase_slice(dev, card)

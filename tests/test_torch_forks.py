@@ -681,17 +681,30 @@ def test_chip_smokes_engine_expectation(capsys):
 
 
 def test_chip_smokes_fork_ss_bound():
-    """fork_ss' bound at the closure's shape of the 1024 x 100k run: the
-    X*W*B compares on the ALU pipe bound it (the X*W*N adds run beside
-    them on the FMA pipe); with the adds on the ALU pipe it is 1.5 times
-    as long."""
+    """fork_ss' bound at the 1024 x 100k run's two call shapes: the
+    fewest lane operations any design reading the window-relative 16-bit
+    coordinates needs (one a 32-bit word pair, two creators' branch k,
+    and one a word of results OR'd over the K planes, at 128 a clock an
+    SM), about 12.3 ms at the closure's shape and 3.1 ms at the fame's;
+    beside it the int32 figure (X*W*B compares on the ALU pipe, the adds
+    beside them), 32.867 and 8.217 ms; and bytes bound a tiny call."""
     import chip_smoke
 
-    ms, by, one_pipe = chip_smoke.ss_bound(1, 131_073, 2048, 1024, 2)
+    ms, by, int32_ms = chip_smoke.ss_bound(1, 131_073, 2048, 1024, 2)
     assert by == "operations"
-    assert ms == pytest.approx(131_073 * 2048 * 2048
-                               / (132 * 64 * 1.98e9) * 1e3)
-    assert one_pipe == pytest.approx(1.5 * ms)
+    assert ms == pytest.approx(131_073 * 2048 * 512 * 3
+                               / (132 * 128 * 1.98e9) * 1e3)
+    assert ms == pytest.approx(12.32, abs=0.01)
+    assert int32_ms == pytest.approx(131_073 * 2048 * 2048
+                                     / (132 * 64 * 1.98e9) * 1e3)
+    assert int32_ms == pytest.approx(32.867, abs=0.001)
+    ms, _, int32_ms = chip_smoke.ss_bound(16, 2048, 2048, 1024, 2)
+    assert ms == pytest.approx(3.08, abs=0.01)
+    assert int32_ms == pytest.approx(8.217, abs=0.001)
+    # odd N: a word holds two creators, so 131 creators are 66 words
+    ms, _, _ = chip_smoke.ss_bound(1, 10_000, 10_000, 131, 3)
+    assert ms == pytest.approx(10_000 * 10_000 * 66 * 4
+                               / (132 * 128 * 1.98e9) * 1e3)
     ms, by, _ = chip_smoke.ss_bound(1, 4, 4, 1024, 2)
     assert by == "bytes"
 

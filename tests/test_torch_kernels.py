@@ -22,6 +22,7 @@ from babble_tpu_torch.ops.pallas_ingest import (
     walk_supported,
 )
 from babble_tpu_torch.sim.arrays import random_walk_arrays
+from chip_smoke import FORK_SS_CASES
 
 # csrc/la_walk.cu resolves slot order in windows of this many slots (kW)
 WINDOW = 1024
@@ -289,6 +290,82 @@ def test_fork_pipeline_on_card_matches_cpu():
     out = F.fork_pipeline(cfg, F.fork_batch_from_numpy(arrays, "cuda"))
     ref = F.fork_pipeline(cfg, F.fork_batch_from_numpy(arrays, "cpu"))
     assert F.ss_counts.launches > before
+    for name in F.ForkOut._fields:
+        assert torch.equal(getattr(out, name).cpu(), getattr(ref, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", range(1, 9))
+def test_fork_ss_packed_matches_plain(k):
+    """The packed kernel on window-relative int16 planes (absolute
+    indices past 40,000, evicted-looking ancestors, detected creators,
+    INF witnesses, N off the 8-creator planes) against the plain twin on
+    the int32 rows and on the planes, and the CPU's narrowed path."""
+    _need_card()
+    from babble_tpu_torch.ops import forks as F
+    from chip_smoke import fork_ss_case
+
+    la, det, hw, s_off, s_cap = fork_ss_case(2, 300, 200, 13 + 2 * k, k,
+                                             seed=k, device="cuda")
+    win = F.SsWindow(s_off, s_cap)
+    before = F.ss_counts.launches
+    got = F.ss_counts(la, det, hw, k, window=win)
+    torch.cuda.synchronize()
+    assert F.ss_counts.launches == before + 1
+    assert torch.equal(got, F.ss_counts_plain(la, det, hw, k))
+    assert torch.equal(got, F.ss_counts_planes_plain(
+        win.viewer(la, det, k), win.witness(hw, k), k))
+    cpu = F.ss_counts(la.cpu(), det.cpu(), hw.cpu(), k,
+                      window=F.SsWindow(s_off.cpu(), s_cap))
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,g,x,w,n,k,opts", FORK_SS_CASES)
+def test_fork_ss_cases_on_card(name, g, x, w, n, k, opts):
+    """chip_smoke.py phase 11(a)'s cases: the packed path with the
+    window and the int32 path without one, each one launch, exact."""
+    _need_card()
+    from babble_tpu_torch.ops import forks as F
+    from chip_smoke import fork_ss_case
+
+    la, det, hw, s_off, s_cap = fork_ss_case(g, x, w, n, k, seed=5,
+                                             device="cuda", **opts)
+    want = F.ss_counts_plain(la, det, hw, k)
+    for win in (F.SsWindow(s_off, s_cap), None):
+        before = F.ss_counts.launches
+        got = F.ss_counts(la, det, hw, k, window=win)
+        torch.cuda.synchronize()
+        assert F.ss_counts.launches == before + 1
+        assert torch.equal(got, want), (name, win is None)
+
+
+@pytest.mark.gpu
+def test_fork_engine_with_evicted_window_on_card_matches_cpu():
+    """A rolling-window ``ForkHashgraph`` (chain offsets past 0) on the
+    card, its fork_ss calls packed, against the same engine on the CPU:
+    the commits after every call and every ``ForkOut`` field."""
+    _need_card()
+    from babble_tpu_torch.consensus.fork_engine import ForkHashgraph
+    from babble_tpu_torch.ops import forks as F
+    from babble_tpu_torch.sim.generator import random_byzantine_dag
+
+    dag = random_byzantine_dag(6, 600, seed=11, fork_rate=0.05)
+    kw = dict(k=2, auto_compact=True, round_margin=1, seq_window=6,
+              compact_min=16)
+    card = ForkHashgraph(dag.participants, device="cuda", **kw)
+    cpu = ForkHashgraph(dag.participants, device="cpu", **kw)
+    before = F.ss_counts.launches
+    for i in range(0, 600, 100):
+        rows = []
+        for eng in (card, cpu):
+            for ev in dag.events[i:i + 100]:
+                eng.insert_event(ev.clone())
+            rows.append([(e.hex(), e.round_received, e.consensus_timestamp)
+                         for e in eng.run_consensus()])
+        assert rows[0] == rows[1]
+    assert card.dag.evicted > 0 and F.ss_counts.launches > before
+    (_, out), (_, ref) = card._run(), cpu._run()
     for name in F.ForkOut._fields:
         assert torch.equal(getattr(out, name).cpu(), getattr(ref, name)), name
 
