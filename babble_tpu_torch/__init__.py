@@ -24,8 +24,12 @@ msgpack they stand on (``crypto/``, ``codec.py``), and the node runtime
 around the engine (``node/`` ``Core`` and ``Node``: gossip, commits,
 fast-forward, membership sync; ``net/`` commands and the in-memory
 transport; ``wal/``; ``obs/``), whose wire bytes, WAL segments and PEM
-key files are the JAX package's.  It imports torch, numpy and the
-standard library only.
+key files are the JAX package's, and the independent references the
+engines are held to: the JAX package's C++ gossip generator and
+consensus baseline (``native/``, built with g++ at first use) and the
+straight-line ``OracleHashgraph`` (``consensus/oracle.py``, over
+``store/inmem.py``).  It imports torch, numpy and the standard library
+only.
 
 Entry points take an explicit ``device`` ("cuda" by default); pass
 ``device="cpu"`` to run every stage in plain torch on the CPU.
@@ -55,6 +59,7 @@ Entry points take an explicit ``device`` ("cuda" by default); pass
 
 from .consensus.engine import TorchHashgraph
 from .consensus.fork_engine import ForkHashgraph
+from .consensus.oracle import OracleHashgraph
 from .consensus.wide_engine import WideHashgraph
 from .ops.ingest import EventBatch
 from .ops.state import (
@@ -78,7 +83,7 @@ from .store.checkpoint import (
 
 __all__ = [
     "ArrayDag", "DagConfig", "DagState", "EventBatch", "ForkHashgraph",
-    "TorchHashgraph", "WideHashgraph", "WideStream",
+    "OracleHashgraph", "TorchHashgraph", "WideHashgraph", "WideStream",
     "assert_consensus_parity", "batch_from_arrays", "consensus_step",
     "events_from_arrays", "init_state", "live_stream", "load_checkpoint",
     "load_snapshot", "random_byzantine_dag", "random_byzantine_fork_batch",

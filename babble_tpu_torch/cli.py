@@ -400,6 +400,7 @@ def cmd_run(args) -> int:
 def cmd_sim(args) -> int:
     import torch
 
+    from . import native
     from .ops.state import DagConfig, init_state
     from .sim.arrays import batch_from_arrays, random_gossip_arrays
     from .step import consensus_step
@@ -412,7 +413,8 @@ def cmd_sim(args) -> int:
         n=args.nodes, e_cap=args.events,
         s_cap=max(64, dag.max_chain + 1), r_cap=args.rounds,
     )
-    print(f"host build: {time.perf_counter()-t0:.2f}s", file=sys.stderr)
+    print(f"host build: {time.perf_counter()-t0:.2f}s "
+          f"(native={native.available()})", file=sys.stderr)
 
     def step():
         out = consensus_step(cfg, "fast", init_state(cfg, device=dev), batch)

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .ss import ss_counts
+from .ss import ss_counts, ss_counts_compare
 from .state import (
     FAME_FALSE,
     FAME_TRUE,
@@ -44,6 +44,29 @@ F32 = torch.float32
 # diagonal-scan working-set bound (elements of [R, N, N]) above which the
 # JAX package takes the round-serial block form (the same constant)
 BLOCK_FAME_THRESHOLD = 1 << 28
+
+
+# elements of the [Rc, N, N, N] compare the diagonal form's strongly-see
+# counts materialise at once (XLA fuses the compare into its reduction;
+# eager torch does not): 256 MB of bools
+SS_NEXT_CHUNK_ELEMS = 1 << 28
+
+
+def _ss_next_counts(law_next: torch.Tensor,
+                    fdw: torch.Tensor) -> torch.Tensor:
+    """cnt[r, a, b] = sum_k [law_next[r, a, k] >= fdw[r, b, k]] (i32), in
+    chunks of rounds whose compare stays within ``SS_NEXT_CHUNK_ELEMS``;
+    where one round alone passes it (N = 1,024 in BASELINE config 3),
+    round by round through ``ss_counts_compare``'s row chunks."""
+    R, N, K = law_next.shape
+    rc = SS_NEXT_CHUNK_ELEMS // max(1, N * N * K)
+    if rc == 0:
+        return torch.stack([ss_counts_compare(law_next[r], fdw[r])
+                            for r in range(R)])
+    return torch.cat([
+        (law_next[r0:r0 + rc, :, None, :] >= fdw[r0:r0 + rc, None, :, :])
+        .sum(-1, dtype=I32) for r0 in range(0, R, rc)
+    ])
 
 
 def decide_fame_impl(cfg: DagConfig, state: DagState,
@@ -72,7 +95,7 @@ def decide_fame_impl(cfg: DagConfig, state: DagState,
     )
 
     # ss_next[r, a, b]: witness a of round r+1 strongly sees witness b of round r
-    ss_cnt = (law_next[:, :, None, :] >= fdw[:, None, :, :]).sum(-1)
+    ss_cnt = _ss_next_counts(law_next, fdw)
     ss_next = (
         (ss_cnt >= sm) & valid_next[:, :, None] & valid_w[:, None, :]
     ).to(F32)

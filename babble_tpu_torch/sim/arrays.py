@@ -1,9 +1,12 @@
 """Array-native DAG generation: the zero-object simulation path.
 
-The port's copy of the JAX package's ``sim/arrays.py`` generator and
-schedule builder (the pure-Python/numpy branches; the native C++ builder
-is not copied — both give bit-identical arrays).  ``batch_from_arrays``
-returns a torch ``EventBatch`` on a given device.
+The port's copy of the JAX package's ``sim/arrays.py``.  The dense
+struct-of-arrays form comes from the native C++ graph builder
+(``babble_tpu_torch.native``, the JAX package's source); the pure-Python
+generator and the numpy schedule stay beside it as their twins
+(``force_python=True``, ``build_schedule_numpy``), bit for bit the same
+arrays.  ``batch_from_arrays`` returns a torch ``EventBatch`` on a
+given device.
 
 The gossip shape follows the reference's live loop (node/node.go:193-222):
 each step one receiver syncs from one random sender, minting an event
@@ -12,11 +15,14 @@ with parents (own head, sender head).
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from .. import native
 
 _BASE_TS = 1_700_000_000_000_000_000
 _MASK64 = (1 << 64) - 1
@@ -71,9 +77,41 @@ def random_gossip_arrays(
     seed: int = 0,
     ts_granularity_ns: int = 1_000,
     base_ts: int = _BASE_TS,
+    force_python: bool = False,
 ) -> ArrayDag:
-    """Generate a gossip DAG as dense numpy arrays (pure Python; the
-    same arrays as the JAX package's generator for the same seed)."""
+    """Generate a gossip DAG as dense arrays with the native C++ builder
+    (the pure-Python twin with ``force_python``; the same arrays as the
+    JAX package's generator for the same seed)."""
+    if force_python:
+        return _gossip_dag_py(seed, n, n_events, ts_granularity_ns, base_ts)
+    lib = native.load()
+    sp = np.empty(n_events, np.int32)
+    op = np.empty(n_events, np.int32)
+    creator = np.empty(n_events, np.int32)
+    seq = np.empty(n_events, np.int32)
+    ts = np.empty(n_events, np.int64)
+    mbit = np.empty(n_events, np.uint8)
+    levels = np.empty(n_events, np.int32)
+    heads = np.empty(n, np.int32)
+    p = native.as_ptr
+    lib.gossip_dag(
+        ctypes.c_uint64(seed), n, n_events,
+        ts_granularity_ns, base_ts,
+        p(sp, ctypes.c_int32), p(op, ctypes.c_int32),
+        p(creator, ctypes.c_int32), p(seq, ctypes.c_int32),
+        p(ts, ctypes.c_int64), p(mbit, ctypes.c_uint8),
+        p(levels, ctypes.c_int32), p(heads, ctypes.c_int32),
+    )
+    return ArrayDag(
+        n, sp, op, creator, seq, ts, mbit.astype(bool), levels, seed
+    )
+
+
+def _gossip_dag_py(
+    seed: int, n: int, n_events: int, ts_granularity_ns: int, base_ts: int
+) -> ArrayDag:
+    """Pure-Python twin of the native ``gossip_dag`` (bit-identical
+    output)."""
     sp = np.full(n_events, -1, np.int32)
     op = np.full(n_events, -1, np.int32)
     creator = np.zeros(n_events, np.int32)
@@ -156,7 +194,32 @@ def random_walk_arrays(n: int, e_cap: int, seed: int = 0, seq_base=0,
 
 def build_schedule(levels: np.ndarray, n_levels: int = 0) -> np.ndarray:
     """Group indices by level into an i32[T, B] table, -1 padded (the
-    ingest schedule; stable order within a level)."""
+    ingest schedule; stable order within a level), with the native
+    builder's ``max_level_width`` and ``build_schedule``."""
+    k = len(levels)
+    if k == 0:
+        return np.full((1, 1), -1, np.int32)
+    if not n_levels:
+        n_levels = int(levels.max()) + 1
+    lv = np.ascontiguousarray(levels, np.int32)
+    if int(lv.min()) < 0 or int(lv.max()) >= n_levels:
+        raise ValueError(f"levels outside [0, {n_levels})")
+    lib = native.load()
+    i32, p = ctypes.c_int32, native.as_ptr
+    counts = np.empty(n_levels, np.int32)
+    width = int(lib.max_level_width(p(lv, i32), k, n_levels,
+                                    p(counts, i32)))
+    sched = np.empty((n_levels, width), np.int32)
+    fill = np.empty(n_levels, np.int32)
+    rc = lib.build_schedule(p(lv, i32), k, n_levels, width, p(sched, i32),
+                            p(fill, i32))
+    if rc != 0:
+        raise RuntimeError(f"native build_schedule returned {rc}")
+    return sched
+
+
+def build_schedule_numpy(levels: np.ndarray, n_levels: int = 0) -> np.ndarray:
+    """The numpy twin of ``build_schedule`` (the same table)."""
     k = len(levels)
     if k == 0:
         return np.full((1, 1), -1, np.int32)

@@ -261,7 +261,34 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    restored on the card, held to the JAX Cores' commits and the JAX
    checkpoint's meta bytes and arrays (``WIDE_ENGINE_EXPECT``, made by
    ``JAX_PLATFORMS=cpu python -m tests.test_torch_wide_engine``).  (e)
-   ss_count launched and la_walk not on every wide flow.
+   ss_count launched and la_walk not on every wide flow.  (b)'s config-3
+   run is also held to phase 13(d)'s C++ baseline (round, witness, rr,
+   cts and fame over its 100,000 events, 61,900 ordered).
+13. reference — run right after phase 4: the independent references
+   (``native/``, ``consensus/oracle.py``).  (a) both C++ libraries built
+   by the port's loader (g++ -O3 -shared -fPIC -std=c++17, hash-named in
+   ``_build/``), with their build time.  (b) the C++
+   ``random_gossip_arrays`` against its pure-Python twin at 64 x 65,536
+   and 1024 x 100,000 (seed 7), every field, max_chain and the level
+   schedule, with both host times.  (c) BASELINE config 2: phase 4's
+   walk step against ``baseline_consensus`` (``hold_to_baseline``:
+   round, witness, rr exactly, cts where received, fame through every
+   wslot cell), 63,340 ordered.  (d) BASELINE config 3 as bench.py's
+   ``run_config`` builds it (``REF_FULL``: s_cap max(64, max_chain + 1),
+   r_cap 16, "walk" where ``walk_supported`` admits it, else "fast"):
+   the C++ baseline on a thread beside the device work, a first run and
+   three timed runs from fresh states (median), max_round < r_cap - 1,
+   held to the baseline in the same fields, 61,900 ordered; it prints
+   first and warm wall, events ordered/s, the ingest/fame/order split,
+   peak memory, each kernel's launches (none: n = 1,024 takes "fast"),
+   the baseline's wall and events/s on the card's host and the ratio.
+   (e), config 3 through the wide pipeline against the same baseline,
+   is phase 12(b), which takes (d)'s baseline result.  (f)
+   ``TorchHashgraph`` on the card held to ``OracleHashgraph`` on the
+   host (``oracle_flow``: ``random_gossip_dag(8, 600, seed=17)``, gated,
+   rolling windows, one ``run_consensus`` every 64 inserts; rounds and
+   witness flags after every call, then commit order, round received,
+   consensus timestamps, lcr and fame).
 
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -272,6 +299,7 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
+import os
 import re
 import subprocess
 import sys
@@ -722,6 +750,23 @@ WIDE_ENGINE_EXPECT = {
         "c4b11d3fa601e5ba4fb497c9828c2850d23a371615303c879913354b2b9bef7e",
 }
 
+# phase 13: the independent references (native/, consensus/oracle.py).
+# REF_FULL is BASELINE config 3 as bench.py's run_config builds its
+# headline (CONFIGS[0]: s_cap max(64, max_chain + 1), r_cap 16, the
+# "walk" mode where walk_supported admits it, else "fast"; three timed
+# runs after the first).  REF_EXPECT: the C++ baseline's ordered counts
+# for the two seed-7 DAGs (the JAX package's native/baseline_consensus.cpp
+# on a CPU; BENCH_r02.json holds the same two counts).
+REF_FULL = dict(n=1024, e=100_000, seed=7, s_cap_min=64, r_cap=16,
+                repeats=3)
+REF_EXPECT = {"slice": 63340, "full": 61900}
+# (f): the engine on the card held to OracleHashgraph on README.md's
+# engine flow (gated, rolling windows)
+REF_ORACLE = dict(n=8, e=600, seed=17, every=64,
+                  engine=dict(e_cap=128, auto_compact=True, seq_window=32,
+                              finality_gate=True))
+ARRAY_FIELDS = ("sp", "op", "creator", "seq", "ts", "mbit", "levels")
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 ops/s
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
@@ -1078,6 +1123,29 @@ def ss_count_turns(other: str, card: str) -> dict:
     return out
 
 
+def step_phases(cfg, mode: str, batch, dev):
+    """The batch step's phases one after another on a fresh state, each
+    synchronised: (wall ms by phase, the state after the rounds phase,
+    the final state)."""
+    from babble_tpu_torch import init_state
+    from babble_tpu_torch.ops import fame, ingest, order
+
+    st = init_state(cfg, device=dev)
+    phases = {}
+    for name, fn in (
+        ("ingest_coords", lambda s: ingest.ingest_coords_impl(cfg, s, mode, batch)),
+        ("ingest_rounds", lambda s: ingest.ingest_rounds_impl(cfg, s, mode, batch)),
+        ("fame", lambda s: fame.decide_fame_auto_impl(cfg, s)),
+        ("order", lambda s: order.decide_order_impl(cfg, s)),
+    ):
+        box = {}
+        phases[name] = wall_ms(lambda: box.setdefault("s", fn(st)))
+        st = box["s"]
+        if name == "ingest_rounds":
+            ingested = st
+    return phases, ingested, st
+
+
 def phase_slice(dev, card: str):
     """Drive the main path; returns (la_walk's launch count in that run,
     the run's wall ms)."""
@@ -1087,7 +1155,6 @@ def phase_slice(dev, card: str):
         DagConfig, assert_consensus_parity, batch_from_arrays,
         consensus_step, init_state, random_gossip_arrays,
     )
-    from babble_tpu_torch.ops import fame, ingest, order
     from babble_tpu_torch.ops.pallas_ingest import la_walk, walk_supported
 
     t0 = time.perf_counter()
@@ -1114,20 +1181,7 @@ def phase_slice(dev, card: str):
     if launches < 1:
         raise AssertionError("the walk step never launched la_walk")
 
-    # per-phase wall times of the same step (synchronised between phases)
-    st = init_state(cfg, device=dev)
-    phases = {}
-    for name, fn in (
-        ("ingest_coords", lambda s: ingest.ingest_coords_impl(cfg, s, "walk", batch)),
-        ("ingest_rounds", lambda s: ingest.ingest_rounds_impl(cfg, s, "walk", batch)),
-        ("fame", lambda s: fame.decide_fame_auto_impl(cfg, s)),
-        ("order", lambda s: order.decide_order_impl(cfg, s)),
-    ):
-        box = {}
-        phases[name] = wall_ms(lambda: box.setdefault("s", fn(st)))
-        st = box["s"]
-        if name == "ingest_rounds":
-            ingested = st
+    phases, ingested, st = step_phases(cfg, "walk", batch, dev)
     assert_consensus_parity(out, st, cfg.e_cap, "phased-vs-step")
 
     fast = consensus_step(cfg, "fast", init_state(cfg, device=dev), batch)
@@ -3793,8 +3847,10 @@ def wide_coords_split(stream, dag, batch: int) -> str:
             f"{(t2 - t1) * 1e3:.1f} ms; {stream.C} blocks")
 
 
-def phase_wide(dev, card: str) -> dict:
-    """Phase 12 (module docstring).  Returns ss_count's JSON row."""
+def phase_wide(dev, card: str, base3) -> dict:
+    """Phase 12 (module docstring).  ``base3`` is the C++ baseline's
+    result on config 3's DAG (phase 13(d)).  Returns ss_count's JSON
+    row."""
     import os
     import tempfile
 
@@ -3861,6 +3917,8 @@ def phase_wide(dev, card: str) -> dict:
         if rep == 0:
             full_launches = ss_counts_acc.launches
             got = pipeline_summary(out)
+            held = hold_to_baseline("(b) config 3 wide pipeline", out,
+                                    base3, int(out.n_events.item()))
         del out
     if full_launches == 0 or la_walk.launches:
         raise AssertionError(f"run_wide_pipeline launched ss_count "
@@ -3875,7 +3933,9 @@ def phase_wide(dev, card: str) -> dict:
           f"({got['ordered'] / walls[1] * 1e3:,.0f} events ordered/s); "
           f"phases {', '.join(f'{k} {v * 1e3:.1f} ms' for k, v in timings.items())}; "
           f"ss_count launches {full_launches}; rounds to fame "
-          f"{stats.get('fame_decision_distance')}; {card}", flush=True)
+          f"{stats.get('fame_decision_distance')}; == C++ baseline (phase "
+          f"13(d)) on round, witness, rr, cts and fame, {held:,} ordered; "
+          f"{card}", flush=True)
     if got != WIDE_EXPECT["full"]:
         raise AssertionError(f"config 3 through run_wide != the JAX "
                              f"package's: {got} vs {WIDE_EXPECT['full']}")
@@ -4040,6 +4100,271 @@ def phase_wide(dev, card: str) -> dict:
     }
 
 
+def hold_to_baseline(label: str, out, base, e: int) -> int:
+    """Hold a step state's first ``e`` events to the C++ baseline's
+    arrays (``native.baseline_consensus``): round, witness and rr
+    exactly, cts where rr >= 0, and fame through every ``wslot`` cell
+    that names an event (tests/test_arrays.py's mapping).  Raises naming
+    the first field and slot that differ; returns the ordered count."""
+    import numpy as np
+
+    ordered, want = base
+
+    def host(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+    rr = host(out.rr)[:e]
+    recv = want["rr"] >= 0
+    wslot, famous = host(out.wslot), host(out.famous)
+    cell = (wslot >= 0) & (wslot < e)
+    pairs = (
+        ("round", host(out.round)[:e], want["round"]),
+        ("witness", host(out.witness)[:e].astype(bool), want["witness"]),
+        ("rr", rr, want["rr"]),
+        ("cts", host(out.cts)[:e][recv], want["cts"][recv]),
+        ("fame", famous[cell], want["fame"][wslot[cell]]),
+    )
+    for name, got, ref in pairs:
+        if got.shape != ref.shape or not np.array_equal(got, ref):
+            i = int(np.flatnonzero(got != ref)[0]) if got.shape == \
+                ref.shape else -1
+            raise AssertionError(
+                f"{label}: {name} differs from the C++ baseline (first "
+                f"index {i}: {got[i] if i >= 0 else got.shape} vs "
+                f"{ref[i] if i >= 0 else ref.shape})")
+    got = int((rr >= 0).sum())
+    if got != ordered:
+        raise AssertionError(f"{label}: ordered {got} != the C++ "
+                             f"baseline's {ordered}")
+    return got
+
+
+def oracle_flow(device, n: int, e: int, seed: int, every: int,
+                engine: dict) -> dict:
+    """``TorchHashgraph`` on ``device`` held to ``OracleHashgraph``: the
+    same events (``random_gossip_dag(n, e, seed)``, unsigned) into both,
+    one ``run_consensus`` of each every ``every`` inserts and at the end.
+    After every call, the round and witness flag of every event the
+    engine still holds; at the end, the commit order, each committed
+    event's round received and consensus timestamp, the last consensus
+    round, and the fame of every witness of the rounds the engine still
+    holds (tests/test_engine.py ``_compare_all``, on a rolling window).
+    Raises at the first difference; returns what it compared."""
+    from babble_tpu_torch import (
+        OracleHashgraph, TorchHashgraph, random_gossip_dag,
+    )
+    from babble_tpu_torch.store import InmemStore
+
+    g = random_gossip_dag(n, e, seed=seed)
+    oracle = OracleHashgraph(
+        participants=g.participants, verify_signatures=False,
+        store=InmemStore(g.participants, cache_size=100_000))
+    eng = TorchHashgraph(g.participants, verify_signatures=False,
+                         device=device, **engine)
+    got, want = [], []
+    rounds = 0
+    for i, ev in enumerate(g.events):
+        oracle.insert_event(ev.clone())
+        eng.insert_event(ev.clone())
+        if i % every != every - 1 and i != len(g.events) - 1:
+            continue
+        got += eng.run_consensus()
+        want += oracle.run_consensus()
+        for x in (v.hex() for v in g.events[:i + 1]):
+            if x not in eng.dag.slot_of:
+                continue
+            if (eng.round(x), eng.witness(x)) != (oracle.round(x),
+                                                  oracle.witness(x)):
+                raise AssertionError(
+                    f"engine vs oracle after insert {i}: {x[:12]} round/"
+                    f"witness {(eng.round(x), eng.witness(x))} vs "
+                    f"{(oracle.round(x), oracle.witness(x))}")
+            rounds += 1
+    if [x.hex() for x in got] != [x.hex() for x in want]:
+        raise AssertionError(f"engine vs oracle: commit order differs "
+                             f"({len(got)} vs {len(want)} committed)")
+    for a, b in zip(got, want):
+        if (a.round_received, a.consensus_timestamp) != \
+                (b.round_received, b.consensus_timestamp):
+            raise AssertionError(
+                f"engine vs oracle: {a.hex()[:12]} round received / "
+                f"consensus timestamp {(a.round_received, a.consensus_timestamp)}"
+                f" vs {(b.round_received, b.consensus_timestamp)}")
+    if eng.last_consensus_round != oracle.last_consensus_round:
+        raise AssertionError(f"engine vs oracle: lcr "
+                             f"{eng.last_consensus_round} vs "
+                             f"{oracle.last_consensus_round}")
+    fame = 0
+    for r in range(eng._r_off, oracle.store.rounds()):
+        info = oracle.store.get_round(r)
+        for w in info.witnesses():
+            if w in eng.dag.slot_of:
+                if eng.famous_of(r, w) != info.events[w].famous:
+                    raise AssertionError(f"engine vs oracle: fame of "
+                                         f"{w[:12]} in round {r}")
+                fame += 1
+    return dict(committed=len(got), lcr=eng.last_consensus_round,
+                round_checks=rounds, fame_checks=fame,
+                evicted=eng.dag.slot_base)
+
+
+def phase_reference(dev, card: str, walk_out, walk_cfg, walk_dag,
+                    walk_launches: int, full=REF_FULL,
+                    oracle=REF_ORACLE) -> tuple:
+    """Phase 13 (module docstring).  Returns the C++ baseline's result on
+    config 3's DAG, which phase 12(b) holds the wide pipeline to."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from babble_tpu_torch import (
+        DagConfig, assert_consensus_parity, batch_from_arrays,
+        consensus_step, init_state, native, random_gossip_arrays,
+    )
+    from babble_tpu_torch.ops.forks import ss_counts
+    from babble_tpu_torch.ops.pallas_ingest import la_walk, walk_supported
+    from babble_tpu_torch.ops.ss import ss_counts_acc
+    from babble_tpu_torch.sim.arrays import (
+        build_schedule, build_schedule_numpy,
+    )
+
+    t_phase = time.perf_counter()
+    # (a) both host libraries through the port's loader
+    for name in ("graph_builder", "baseline_consensus"):
+        built = os.path.exists(native.library_path(name))
+        t0 = time.perf_counter()
+        path = native.build(name)
+        print(f"[reference] (a) {name}: {'cached' if built else 'built'} "
+              f"in {time.perf_counter() - t0:.2f} s "
+              f"({native.CXX} {' '.join(native.CXX_FLAGS)}) -> "
+              f"{os.path.relpath(path)}", flush=True)
+    native.load_baseline()
+
+    # (b) the C++ generator against its pure-Python twin
+    dags = {}
+    for tag, n, e in (("slice", SLICE["n"], SLICE["e"]),
+                      ("full", full["n"], full["e"])):
+        t0 = time.perf_counter()
+        cpp = random_gossip_arrays(n, e, seed=full["seed"])
+        t_cpp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        twin = random_gossip_arrays(n, e, seed=full["seed"],
+                                    force_python=True)
+        t_py = time.perf_counter() - t0
+        bad = [f for f in ARRAY_FIELDS
+               if getattr(cpp, f).dtype != getattr(twin, f).dtype
+               or not np.array_equal(getattr(cpp, f), getattr(twin, f))]
+        if cpp.max_chain != twin.max_chain:
+            bad.append("max_chain")
+        if not np.array_equal(build_schedule(cpp.levels),
+                              build_schedule_numpy(twin.levels)):
+            bad.append("schedule")
+        if bad:
+            raise AssertionError(f"C++ generator != its Python twin at "
+                                 f"{n} x {e}: {bad}")
+        print(f"[reference] (b) random_gossip_arrays({n}, {e}, seed="
+              f"{full['seed']}): C++ == Python twin on {', '.join(ARRAY_FIELDS)}, "
+              f"max_chain {cpp.max_chain}, schedule ({cpp.n_levels} "
+              f"levels); C++ {t_cpp * 1e3:.1f} ms, Python {t_py:.2f} s on "
+              f"the card's host", flush=True)
+        dags[tag] = cpp
+    del twin
+
+    # (c) BASELINE config 2: phase 4's walk step against the baseline
+    t0 = time.perf_counter()
+    base = native.baseline_consensus(walk_dag)
+    t_base = time.perf_counter() - t0
+    got = hold_to_baseline("(c) 64 x 65,536 walk step", walk_out, base,
+                           walk_cfg.e_cap)
+    if got != REF_EXPECT["slice"]:
+        raise AssertionError(f"(c) ordered {got} != {REF_EXPECT['slice']}")
+    print(f"[reference] (c) {walk_cfg.n} x {walk_cfg.e_cap} walk step "
+          f"(phase 4, la_walk launches {walk_launches}) == C++ baseline on "
+          f"round, witness, rr, cts and fame; ordered {got:,}; baseline "
+          f"{t_base:.2f} s on the card's host", flush=True)
+
+    # (d) BASELINE config 3 through the batch step, as run_config runs it
+    dag = dags["full"]
+    cfg = DagConfig(n=full["n"], e_cap=full["e"],
+                    s_cap=max(full["s_cap_min"], dag.max_chain + 1),
+                    r_cap=full["r_cap"])
+    mode = "walk" if walk_supported(cfg.n, cfg.e_cap, cfg.s_cap) else "fast"
+    batch = batch_from_arrays(dag, device=dev)
+    box = {}
+
+    def baseline():
+        t0 = time.perf_counter()
+        try:
+            box["out"] = native.baseline_consensus(dag)
+        except BaseException as exc:   # re-raised after the join
+            box["err"] = exc
+        box["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=baseline, daemon=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    la_walk.launches = ss_counts_acc.launches = ss_counts.launches = 0
+    thread.start()
+    box_out = {}
+    first = wall_ms(lambda: box_out.setdefault("out", consensus_step(
+        cfg, mode, init_state(cfg, device=dev), batch)))
+    out = box_out["out"]
+    walls = []
+    for _ in range(full["repeats"]):
+        s0 = init_state(cfg, device=dev)
+        box_out = {}
+        walls.append(wall_ms(lambda: box_out.setdefault(
+            "out", consensus_step(cfg, mode, s0, batch))))
+    launches = dict(la_walk=la_walk.launches, ss_count=ss_counts_acc.launches,
+                    fork_ss=ss_counts.launches)
+    peak = torch.cuda.max_memory_allocated()
+    assert_consensus_parity(out, box_out["out"], cfg.e_cap,
+                            "config 3 first vs last run")
+    del s0, box_out
+    phases, _, _ = step_phases(cfg, mode, batch, dev)
+    thread.join()
+    if "err" in box:
+        raise box["err"]
+    base3, t_base = box["out"], box["s"]
+    warm = sorted(walls)[len(walls) // 2]
+    max_round = int(out.max_round.item())
+    if max_round >= cfg.r_cap - 1:
+        raise AssertionError(f"(d) round capacity saturated: max_round "
+                             f"{max_round}, r_cap {cfg.r_cap}")
+    got = hold_to_baseline("(d) config 3 batch step", out, base3,
+                           cfg.e_cap)
+    if got != REF_EXPECT["full"]:
+        raise AssertionError(f"(d) ordered {got} != {REF_EXPECT['full']}")
+    eps, base_eps = got / warm * 1e3, base3[0] / t_base
+    cells = int((out.wslot[:cfg.r_cap] >= 0).sum().item())
+    print(f"[reference] (d) config 3 batch step ({cfg.n} x {cfg.e_cap}, "
+          f"mode {mode}, s_cap {cfg.s_cap}, r_cap {cfg.r_cap}): == C++ "
+          f"baseline on round, witness, rr, cts and fame ({cells} witness "
+          f"cells of {cfg.r_cap} x {cfg.n}); ordered {got:,}, max_round "
+          f"{max_round}, lcr {int(out.lcr.item())}; first {first:.1f} ms, "
+          f"warm {', '.join(f'{w:.1f}' for w in walls)} ms (median "
+          f"{warm:.1f}: {eps:,.0f} events ordered/s); phases (ms wall) "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in phases.items())}; peak "
+          f"{peak / 2**30:.2f} GiB; launches {launches}; C++ baseline "
+          f"{t_base:.2f} s on the card's host ({base_eps:,.0f} events "
+          f"ordered/s; step / baseline {eps / base_eps:.1f} x); {card}",
+          flush=True)
+    del out, batch
+    torch.cuda.empty_cache()
+
+    # (f) the engine on the card against the oracle on its host
+    t0 = time.perf_counter()
+    summary = oracle_flow(dev.type, oracle["n"], oracle["e"], oracle["seed"],
+                          oracle["every"], oracle["engine"])
+    print(f"[reference] (f) TorchHashgraph({dev.type}) == OracleHashgraph "
+          f"on random_gossip_dag({oracle['n']}, {oracle['e']}, seed="
+          f"{oracle['seed']}), run_consensus every {oracle['every']}: "
+          f"{summary}; {time.perf_counter() - t0:.1f} s; phase 13 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return base3
+
+
 def main() -> int:
     import torch
 
@@ -4070,6 +4395,7 @@ def main() -> int:
     row["launches"] = launches
     print(f"[slice] la_walk share of the walk step: "
           f"{row['ms'] * launches / step_ms:.4f}", flush=True)
+    base3 = phase_reference(dev, card, out, cfg, dag, launches)
     phase_live(dev, card, out, cfg, dag)
     from babble_tpu_torch.ops.pallas_ingest import la_walk
 
@@ -4113,7 +4439,7 @@ def main() -> int:
           f"{time.perf_counter() - t1:.1f} s)", flush=True)
 
     byz_row = phase_byzantine(dev, card)
-    wide_row = phase_wide(dev, card)
+    wide_row = phase_wide(dev, card, base3)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [row, byz_row, wide_row]}), flush=True)

@@ -5,11 +5,12 @@ identities, signed join/leave transactions, hostile ones, joiners that
 start minting and leavers that stop) go through JAX ``TpuHashgraph`` and
 the port's ``TorchHashgraph`` with the same ``run_consensus`` calls, at
 tiny capacities so that growth, compaction and the held-commit gate all
-happen (round repair is held to JAX by ``tests/test_torch_engine.py``'s
-flows; no churn flow here reaches it).  After every call: committed ids,
-commit digest, epoch, membership log, pending transition, queue,
-rejects, the config and the live rows of every state tensor.  The flows
-with leaves are in ``tests/test_torch_membership.py``.
+happen, and one flow repairs clipped rounds (``_repair_rounds``) before
+its transition (``tests/test_torch_engine.py``'s flows hold repair
+without churn).  After every call: committed ids, commit digest, epoch,
+membership log, pending transition, queue, rejects, the config and the
+live rows of every state tensor.  The flows with leaves are in
+``tests/test_torch_membership.py``.
 
 Reference helper (run on the CPU, about ten minutes):
 
@@ -158,6 +159,33 @@ def test_churn_flow_equals_jax_per_call(name):
             32, None, dict(finality_gate=True, **_TINY),
             dict(epoch=3, n=10, retired=(5,), rejects=0))
     assert "pipelined" in seen and "latency" in seen
+
+
+def test_churn_flow_with_round_repair_equals_jax_per_call(monkeypatch):
+    """Round repair and an epoch transition in one flow: two validators
+    outrun the round capacity (grown from 4 to 16), so a throughput flush
+    repairs clipped rounds (``_repair_rounds``, r_cap 16 -> 32) in epoch
+    0 at slot 150; then a join takes the engine to epoch 1 and the joiner
+    mints.  Held to the JAX engine after every call; both engines repair
+    at the same slot."""
+    from babble_tpu.consensus import engine as jengine
+
+    repairs = {"jax": [], "torch": []}
+    for name, cls in (("jax", jengine.TpuHashgraph),
+                      ("torch", pengine.TorchHashgraph)):
+        orig = cls._repair_rounds
+
+        def spy(self, orig=orig, log=repairs[name]):
+            log.append((self.epoch, self.dag.n_events, self.cfg.r_cap))
+            return orig(self)
+
+        monkeypatch.setattr(cls, "_repair_rounds", spy)
+    je, seen = _flow(2, 300, 4, [(200, "join", 2, 0), (260, "start", 2, 1)],
+                     chunk=30, finality_gate=True, **_TINY)
+    assert repairs["torch"] == repairs["jax"] == [(0, 150, 16)]
+    assert (je.epoch, je.cfg.n, je.membership_rejects) == (1, 3, 0)
+    assert je.cfg.r_cap > _TINY["r_cap"] and je.commit_length > 0
+    assert {"throughput", "compact"} <= seen
 
 
 def test_feed_churn_refuses_an_early_joiner():

@@ -4,9 +4,10 @@ runs a consensus step, a live stream, the engine, a churn flow, a
 checkpoint save and load, a 3-node fleet of its ``Node`` (gossip to
 committed transactions, then a restart from the write-ahead log), its
 cli's ``keygen`` and ``sim --device cpu`` as ``python -m`` runs them, a
-round trip between two of its TCP transports, and a chaos scenario
-through its runner (the disk-rot mini: crash, checkpoint and WAL rot,
-recovery), with all four blocked."""
+round trip between two of its TCP transports, a chaos scenario through
+its runner (the disk-rot mini: crash, checkpoint and WAL rot,
+recovery), its C++ generator and baseline (built by its own loader) and
+its straight-line oracle, with all four blocked."""
 
 import ast
 import os
@@ -39,7 +40,8 @@ def test_port_sources_import_no_jax():
             "service/service.py", "chaos/__init__.py", "chaos/plan.py",
             "chaos/injector.py", "chaos/transport.py", "chaos/invariants.py",
             "chaos/disk.py", "chaos/forge.py", "chaos/scenarios.py",
-            "chaos/scenario.py"} <= scanned
+            "chaos/scenario.py", "native/__init__.py",
+            "consensus/oracle.py", "store/inmem.py"} <= scanned
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -228,6 +230,26 @@ r = run_scenario(Scenario.from_dict({**CHAOS_MINI_DISKROT, "seed": 1}),
                  seed=1, device="cpu")
 assert r.fault_counts["checkpoint_corrupt"] == 1, r.fault_counts
 assert chaos_summary(r) == CHAOS_EXPECT["mini-disk-rot"][1], chaos_summary(r)
+# the independent references: the C++ generator and baseline built by
+# the port's loader, and the straight-line oracle with its Store
+from babble_tpu_torch import OracleHashgraph, native
+from babble_tpu_torch.store import InmemStore
+small = bt.random_gossip_arrays(8, 500, seed=3)
+twin = bt.random_gossip_arrays(8, 500, seed=3, force_python=True)
+assert all((getattr(small, f) == getattr(twin, f)).all()
+           for f in ("sp", "op", "creator", "seq", "ts", "mbit", "levels"))
+ordered, base = native.baseline_consensus(small)
+cfg8 = bt.DagConfig(n=8, e_cap=500, s_cap=small.max_chain + 1, r_cap=64)
+out = bt.consensus_step(cfg8, "fast", bt.init_state(cfg8, device="cpu"),
+                        bt.batch_from_arrays(small, device="cpu"))
+assert ordered == 370 == int((out.rr[:500] >= 0).sum()), ordered
+assert (out.rr[:500].numpy() == base["rr"]).all()
+oracle = OracleHashgraph(participants=gen.participants, verify_signatures=False,
+                         store=InmemStore(gen.participants, 100_000))
+for ev in gen.events:
+    oracle.insert_event(ev.clone())
+oracle.run_consensus()
+assert len(oracle.consensus_events()) > 0
 blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
            and sys.modules[m] is not None]
 assert not blocked, blocked
