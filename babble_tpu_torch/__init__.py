@@ -28,8 +28,11 @@ key files are the JAX package's, and the independent references the
 engines are held to: the JAX package's C++ gossip generator and
 consensus baseline (``native/``, built with g++ at first use) and the
 straight-line ``OracleHashgraph`` (``consensus/oracle.py``, over
-``store/inmem.py``).  It imports torch, numpy and the standard library
-only.
+``store/inmem.py``), and the operator's host tools: the fleet's conf,
+sweeps and traces (``fleet.py``, the ``fleet`` and ``testnet
+health|trace`` verbs of ``cli.py``) and babble-lint (``analysis/``,
+the ``lint`` verb), which run without torch.  It imports torch, numpy
+and the standard library only.
 
 Entry points take an explicit ``device`` ("cuda" by default); pass
 ``device="cpu"`` to run every stage in plain torch on the CPU.
@@ -57,29 +60,50 @@ Entry points take an explicit ``device`` ("cuda" by default); pass
                               compact_min=64)
 """
 
-from .consensus.engine import TorchHashgraph
-from .consensus.fork_engine import ForkHashgraph
-from .consensus.oracle import OracleHashgraph
-from .consensus.wide_engine import WideHashgraph
-from .ops.ingest import EventBatch
-from .ops.state import (
-    DagConfig, DagState, assert_consensus_parity, init_state,
-    state_from_numpy, state_to_numpy,
-)
-from .sim.arrays import (
-    ArrayDag, batch_from_arrays, events_from_arrays, random_byzantine_fork_batch,
-    random_gossip_arrays,
-)
-from .sim.generator import (
-    random_byzantine_dag, random_churn_dag, random_gossip_dag,
-)
-from .ops.stream import WideStream, stream_consensus
-from .ops.wide import run_wide_pipeline
-from .sim.live import live_stream
-from .step import consensus_step
-from .store.checkpoint import (
-    load_checkpoint, load_snapshot, save_checkpoint, snapshot_bytes,
-)
+# Names resolve on first use (PEP 562), so that host tools which never
+# touch a tensor (``python -m babble_tpu_torch.cli lint``, the fleet
+# sweeps) start without importing torch.
+_EXPORTS = {
+    "TorchHashgraph": "consensus.engine",
+    "ForkHashgraph": "consensus.fork_engine",
+    "OracleHashgraph": "consensus.oracle",
+    "WideHashgraph": "consensus.wide_engine",
+    "EventBatch": "ops.ingest",
+    "DagConfig": "ops.state", "DagState": "ops.state",
+    "assert_consensus_parity": "ops.state", "init_state": "ops.state",
+    "state_from_numpy": "ops.state", "state_to_numpy": "ops.state",
+    "ArrayDag": "sim.arrays", "batch_from_arrays": "sim.arrays",
+    "events_from_arrays": "sim.arrays",
+    "random_byzantine_fork_batch": "sim.arrays",
+    "random_gossip_arrays": "sim.arrays",
+    "random_byzantine_dag": "sim.generator",
+    "random_churn_dag": "sim.generator",
+    "random_gossip_dag": "sim.generator",
+    "WideStream": "ops.stream", "stream_consensus": "ops.stream",
+    "run_wide_pipeline": "ops.wide",
+    "live_stream": "sim.live",
+    "consensus_step": "step",
+    "load_checkpoint": "store.checkpoint",
+    "load_snapshot": "store.checkpoint",
+    "save_checkpoint": "store.checkpoint",
+    "snapshot_bytes": "store.checkpoint",
+}
+
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(f".{mod}", __name__), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
+
 
 __all__ = [
     "ArrayDag", "DagConfig", "DagState", "EventBatch", "ForkHashgraph",

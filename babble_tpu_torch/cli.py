@@ -7,16 +7,21 @@
 - ``sim``     — generate a random gossip DAG and run the batch consensus
   step (mode ``"fast"``) on the device (no networking).
 - ``dummy``   — the reference's chat client (``proxy/dummy.py``).
-- ``testnet`` — ``conf``, ``run``, ``bombard`` and ``watch`` for a local
-  fleet of port nodes (``testnet.py``).
+- ``testnet`` — ``conf``, ``run``, ``bombard``, ``watch``, ``health`` and
+  ``trace`` for a local fleet of port nodes (``testnet.py``).
+- ``fleet``   — ``conf``, ``watch``, ``scrape``, ``health``, ``trace`` and
+  ``bombard`` for a fleet of one node a host (``fleet.py``).
 - ``chaos``   — ``list``, ``show`` and ``run`` the chaos plane's
   scenarios (``chaos/``): the deterministic in-memory cluster, or a live
   subprocess fleet with ``--live``.
+- ``lint``    — babble-lint (``analysis/``), forwarded whole to
+  ``python -m babble_tpu_torch.analysis``.
 
 The flags and defaults are the JAX package's, plus ``--device`` (the
 card by default; ``--device cpu`` runs every stage in plain torch on the
-CPU).  The port has no XLA cache, so no ``--jax_cache``.  The verbs
-still to port raise ``SystemExit`` naming their ROADMAP.md item.
+CPU).  The port has no XLA cache, so no ``--jax_cache``.  This module
+imports no torch: ``lint`` and the fleet and testnet sweeps run without
+it, and the verbs that drive an engine import it when they run.
 """
 
 from __future__ import annotations
@@ -24,31 +29,16 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import sys
 import time
-
-from .ops.forks import FORK_SS_MAX_K
-
-NOT_PORTED_FLEET = (
-    "{what} is not ported yet (ROADMAP.md Queue 1, item 5e: the fleet "
-    "tools)"
-)
-
-#: verbs of the JAX package's cli that the port does not have yet
-NOT_PORTED_VERBS = {
-    ("fleet",): NOT_PORTED_FLEET.format(what="the fleet verb (fleet.py)"),
-    ("lint",): NOT_PORTED_FLEET.format(
-        what="the lint verb (analysis/cli.py)"),
-    ("testnet", "health"): NOT_PORTED_FLEET.format(
-        what="testnet health (fleet.py health_hosts)"),
-    ("testnet", "trace"): NOT_PORTED_FLEET.format(
-        what="testnet trace (fleet.py trace_tx)"),
-}
 
 
 def check_fork_k(args) -> None:
     """Raise ``SystemExit`` for a ``--fork_k`` the card's fork_ss kernel
     is not built for (the CPU's plain twin takes any k)."""
+    from .ops.forks import FORK_SS_MAX_K
+
     if args.byzantine and args.device.startswith("cuda") \
             and args.fork_k > FORK_SS_MAX_K:
         raise SystemExit(
@@ -102,8 +92,6 @@ def _device_name(device) -> str:
 
 
 async def _run_node(args) -> int:
-    import os
-
     from .crypto.keys import PemKeyFile
     from .net.peers import JSONPeers
     from .net.tcp_transport import new_tcp_transport
@@ -239,8 +227,9 @@ async def _run_node(args) -> int:
         # in-memory scenario runner uses, deriving its own link identity
         # from the canonical peer order — no per-node flags needed.  The
         # wall clock drives only the injector's tick cursor (--chaos_epoch
-        # keeps a restarted node in phase), never event bodies
-        transport = _chaos_wrap(transport, args, key, peers)
+        # keeps a restarted node in phase), never event bodies (those go
+        # through Core.now_ns)
+        transport = _chaos_wrap(transport, args, key, peers)  # babble-lint: disable=consensus-nondeterminism
         print(f"chaos plan {args.chaos_plan} active "
               f"(seed {transport.injector.seed})", file=sys.stderr)
     if args.no_client:
@@ -296,8 +285,6 @@ async def _run_node(args) -> int:
 
 
 def _dump_flight_on_crash(node, datadir: str) -> None:
-    import os
-
     try:
         path = os.path.join(datadir, "flight-crash.json")
         with open(path, "w") as f:
@@ -430,8 +417,6 @@ def cmd_sim(args) -> int:
     if args.profile:
         # torch.profiler trace of the steady-state step, as a Chrome
         # trace in the given directory
-        import os
-
         from .service.service import TraceSession
 
         os.makedirs(args.profile, exist_ok=True)
@@ -526,6 +511,18 @@ def cmd_testnet(args) -> int:
             if args.once:
                 return 0
             time.sleep(args.interval)
+    if args.testnet_cmd in ("health", "trace"):
+        # the read-only observability sweeps share the fleet helpers:
+        # a same-host testnet is just a HostLayout of explicit
+        # host:service_port entries
+        from . import fleet as fl
+
+        layout = fl.HostLayout(
+            [ports.of(i)["service"] for i in range(args.n)]
+        )
+        if args.testnet_cmd == "health":
+            return _print_health(fl, layout, args.json)
+        return _print_trace(fl, layout, args.txid, args.json)
     if args.testnet_cmd == "bombard":
         if args.clients > 1:
             # many-client harness: per-connection admission identities,
@@ -561,6 +558,154 @@ def cmd_testnet(args) -> int:
             runner.stop()
         return 0
     raise SystemExit(f"unknown testnet subcommand {args.testnet_cmd}")
+
+
+def _print_health(fl, layout, as_json: bool) -> int:
+    """One /healthz sweep rendered as the fleet table (or JSON).  Exit
+    1 when any node is unreachable, degraded, or the fleet diverges —
+    a health verb that always exits 0 is a decoration."""
+    rows = fl.health_hosts(layout)
+    divergence = fl.health_divergence(rows)
+    if as_json:
+        print(json.dumps({"nodes": rows, "divergence": divergence},
+                         indent=1))
+    else:
+        print(fl.format_health(rows, divergence))
+    ok = (
+        all("health" in r for r in rows)
+        and all(r["health"].get("status") == "ok" for r in rows)
+        and not any(d["severity"] == "error" for d in divergence)
+    )
+    return 0 if ok else 1
+
+
+def _print_trace(fl, layout, txid: str, as_json: bool) -> int:
+    """Stitch one tx's cross-node lineage; exit 1 when nothing was
+    found (wrong txid, lineage disabled, or the ledgers rolled off)."""
+    from .obs.lineage import format_trace
+
+    st = fl.trace_tx(layout, txid)
+    if as_json:
+        print(json.dumps(st, indent=1))
+    else:
+        if st["errors"]:
+            for e in st["errors"]:
+                print(f"{e['host']}: {e['kind']}: {e['error']}",
+                      file=sys.stderr)
+        print(format_trace(st))
+    return 0 if st["timeline"] else 1
+
+
+def cmd_fleet(args) -> int:
+    from . import fleet as fl
+    from . import testnet as tn
+
+    with open(args.hosts) as f:
+        hosts = [ln.strip() for ln in f if ln.strip()]
+    if not hosts:
+        raise SystemExit(f"{args.hosts} lists no hosts")
+    if getattr(args, "rate", 1.0) <= 0:
+        raise SystemExit("--rate must be positive")
+    layout = fl.HostLayout(
+        hosts, gossip_port=args.gossip_port, submit_port=args.submit_port,
+        commit_port=args.commit_port, service_port=args.service_port,
+    )
+    if (layout.explicit_service_ports()
+            and args.fleet_cmd not in ("watch", "scrape", "trace",
+                                       "health")):
+        # 'host:port' entries name SERVICE endpoints; conf/bombard
+        # would resolve every node to one shared default gossip/submit
+        # port on the same host and silently misroute
+        raise SystemExit(
+            "host:port entries are only valid for the read-only "
+            f"sweeps (watch/scrape/trace/health), not '{args.fleet_cmd}'"
+            " — list bare hosts and use the port flags instead"
+        )
+    if args.fleet_cmd == "conf":
+        dirs = fl.build_fleet_conf(os.path.join(args.dir, "conf"), layout)
+        scripts = fl.write_deploy_scripts(args.dir, layout)
+        print(f"wrote {len(dirs)} node configs + "
+              f"{len(scripts)} deploy files under {args.dir}")
+        return 0
+    if args.fleet_cmd == "watch":
+        while True:
+            print("\x1b[2J\x1b[H" + tn.format_stats(fl.watch_hosts(layout)))
+            if args.once:
+                return 0
+            time.sleep(args.interval)
+    if args.fleet_cmd == "bombard":
+        sent = asyncio.run(
+            fl.bombard_hosts(layout, args.rate, args.duration))
+        print(f"submitted {sent} transactions")
+        return 0
+    if args.fleet_cmd == "health":
+        return _print_health(fl, layout, args.json)
+    if args.fleet_cmd == "trace":
+        return _print_trace(fl, layout, args.txid, args.json)
+    if args.fleet_cmd == "scrape":
+        rows = fl.scrape_hosts(layout)
+        if getattr(args, "rollup", False):
+            rollup = fl.rollup_metrics(rows)
+            # digest-anchor divergence comes from /healthz (a hash
+            # cannot be a metric sample); best-effort — rollup output
+            # must not require every node to serve the health surface
+            try:
+                hrows = fl.health_hosts(layout)
+                # epoch divergence is already covered by the
+                # babble_epoch series check above
+                rollup["divergence"].extend(
+                    d for d in fl.health_divergence(hrows)
+                    if d["kind"] == "digest"
+                )
+            except Exception as e:
+                rollup["health_error"] = str(e)
+            if args.json:
+                print(json.dumps(rollup, indent=1))
+            else:
+                print(fl.format_rollup(rollup))
+            # a diverged fleet must fail the sweep the same way fleet
+            # health would — CI scripted on this exit code must not
+            # see green over a split committed history
+            diverged = any(
+                d.get("severity") == "error"
+                for d in rollup["divergence"]
+            )
+            return 0 if not rollup["unparsed"] and not diverged else 1
+        if getattr(args, "spans", False):
+            # merge the span sweep into the metrics rows; span output is
+            # structured (trees), so this mode is always JSON.  A
+            # loopback-gated host's spans row carries kind='gated' —
+            # expected policy, so it does not flip the exit code the way
+            # a missing /metrics blob does.
+            for row, srow in zip(rows, fl.scrape_spans(layout)):
+                if "spans" in srow:
+                    row["spans"] = srow["spans"]
+                else:
+                    row["spans_kind"] = srow["kind"]
+                    row["spans_error"] = srow["error"]
+            print(json.dumps(rows, indent=1))
+            ok = all(
+                "metrics" in r
+                and ("spans" in r or r.get("spans_kind") == "gated")
+                for r in rows
+            )
+            return 0 if ok else 1
+        if args.json:
+            print(json.dumps(rows, indent=1))
+        else:
+            # one exposition blob per host, comment-separated so the
+            # output stays valid Prometheus text; failures go to stderr
+            # and flip the exit code (a silent half-sweep reads as a
+            # healthy fleet)
+            for row in rows:
+                if "metrics" in row:
+                    print(f"# ==== {row['host']} ====")
+                    print(row["metrics"], end="")
+                else:
+                    print(f"{row['host']}: {row['kind']}: {row['error']}",
+                          file=sys.stderr)
+        return 0 if all("metrics" in r for r in rows) else 1
+    raise SystemExit(f"unknown fleet subcommand {args.fleet_cmd}")
 
 
 def cmd_chaos(args) -> int:
@@ -801,6 +946,8 @@ def build_parser() -> argparse.ArgumentParser:
     for name, hlp in (("conf", "write node datadirs + peers.json"),
                       ("run", "launch nodes + dummy apps"),
                       ("watch", "poll fleet /Stats"),
+                      ("health", "one /healthz sweep + divergence table"),
+                      ("trace", "stitch a tx's cross-node lineage"),
                       ("bombard", "flood random transactions")):
         sp = tsub.add_parser(name, help=hlp)
         sp.add_argument("--n", type=int, default=4)
@@ -808,6 +955,12 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--base_port", type=int, default=12000)
         if name == "conf":
             sp.add_argument("--overwrite", action="store_true")
+        if name == "health":
+            sp.add_argument("--json", action="store_true")
+        if name == "trace":
+            sp.add_argument("txid", help="sha256 hex of the exact "
+                                         "submitted tx bytes")
+            sp.add_argument("--json", action="store_true")
         if name == "run":
             sp.add_argument("--heartbeat", type=int, default=10, help="ms")
             sp.add_argument("--no_clients", action="store_true")
@@ -828,6 +981,55 @@ def build_parser() -> argparse.ArgumentParser:
                             help="txs per Babble.SubmitTxBatch call "
                                  "(many-client harness only)")
         sp.set_defaults(fn=cmd_testnet)
+
+    flp = sub.add_parser("fleet", help="multi-host fleet ops "
+                         "(reference terraform/makefile + scripts)")
+    fsub = flp.add_subparsers(dest="fleet_cmd", required=True)
+    for name, hlp in (
+        ("conf", "node datadirs + peers.json + ssh deploy scripts"),
+        ("watch", "poll every host's /Stats"),
+        ("scrape", "sweep every host's /metrics (Prometheus text)"),
+        ("health", "sweep every host's /healthz into one fleet table "
+                   "flagging epoch/lcr/digest divergence"),
+        ("trace", "scrape + stitch one tx's cross-node commit lineage"),
+        ("bombard", "flood transactions across the hosts"),
+    ):
+        sp = fsub.add_parser(name, help=hlp)
+        sp.add_argument("--hosts", required=True,
+                        help="file with one routable host address per "
+                             "line ('host' or 'host:service_port' — the "
+                             "latter for same-host fleets)")
+        sp.add_argument("--dir", default="fleet-data")
+        sp.add_argument("--gossip_port", type=int, default=1337)
+        sp.add_argument("--submit_port", type=int, default=1338)
+        sp.add_argument("--commit_port", type=int, default=1339)
+        sp.add_argument("--service_port", type=int, default=8080)
+        if name == "watch":
+            sp.add_argument("--interval", type=float, default=2.0)
+            sp.add_argument("--once", action="store_true")
+        if name == "scrape":
+            sp.add_argument("--json", action="store_true",
+                            help="emit the sweep as a JSON row list "
+                                 "instead of concatenated text")
+            sp.add_argument("--spans", action="store_true",
+                            help="also fetch each host's /debug/spans "
+                                 "(loopback-gated hosts report kind="
+                                 "'gated'); implies JSON output")
+            sp.add_argument("--rollup", action="store_true",
+                            help="aggregate per-node series into fleet "
+                                 "sums/maxes with a divergence section "
+                                 "(disagreeing babble_epoch / digest "
+                                 "anchors render as warning rows)")
+        if name == "health":
+            sp.add_argument("--json", action="store_true")
+        if name == "trace":
+            sp.add_argument("txid", help="sha256 hex of the exact "
+                                         "submitted tx bytes")
+            sp.add_argument("--json", action="store_true")
+        if name == "bombard":
+            sp.add_argument("--rate", type=float, default=50.0, help="tx/s")
+            sp.add_argument("--duration", type=float, default=10.0)
+        sp.set_defaults(fn=cmd_fleet)
 
     chp = sub.add_parser("chaos", help="seeded fault injection + "
                          "consensus invariant checking "
@@ -859,14 +1061,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device of every node's engine (the card "
                          "by default; 'cpu' runs plain torch on the CPU)")
     cr.set_defaults(fn=cmd_chaos)
+
+    # `lint` never reaches argparse — main() forwards its whole tail
+    # verbatim (REMAINDER cannot capture a leading option like `lint
+    # --json`); registered here only so the verb appears in --help
+    sub.add_parser(
+        "lint",
+        help="babble-lint static analysis (see python -m "
+             "babble_tpu_torch.analysis --help for the full surface)",
+    )
     return p
 
 
 def main(argv=None) -> int:
+    # `lint` forwards verbatim BEFORE argparse sees the tail: the
+    # analysis CLI owns its whole surface, and runs without torch
     raw = sys.argv[1:] if argv is None else list(argv)
-    for verb, reason in NOT_PORTED_VERBS.items():
-        if tuple(raw[:len(verb)]) == verb:
-            raise SystemExit(f"{' '.join(verb)}: {reason}")
+    if raw and raw[0] == "lint":
+        from .analysis.cli import main as lint_main
+
+        return lint_main(raw[1:])
     args = build_parser().parse_args(raw)
     return args.fn(args)
 

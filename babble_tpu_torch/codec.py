@@ -60,7 +60,7 @@ def _header(out: List[bytes], n: int, fix, tags) -> None:
 
 def _pack_int(out: List[bytes], v: int) -> None:
     if 0 <= v <= 0x7F:
-        out.append(bytes((v,)))
+        out.append(_U8.pack(v))         # positive fixint: one byte
     elif -0x20 <= v < 0:
         out.append(_I8.pack(v))
     elif v > 0:
@@ -93,7 +93,9 @@ def _pack_into(out: List[bytes], obj) -> None:
         _header(out, len(b), (0xA0, 32), {8: 0xD9, 16: 0xDA, 32: 0xDB})
         out.append(b)
     elif t in (bytes, bytearray, memoryview):
-        b = bytes(obj)
+        # a copy of a bytes-like object: its size is the object's own
+        # length, never a decoded integer (ints take _pack_int above)
+        b = bytes(obj)  # babble-lint: disable=unbounded-hostile-input
         _header(out, len(b), None, {8: 0xC4, 16: 0xC5, 32: 0xC6})
         out.append(b)
     elif t in (list, tuple):

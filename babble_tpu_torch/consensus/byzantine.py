@@ -33,7 +33,7 @@ from typing import Dict, List, Optional, Set, Tuple
 
 from ..core.dag import clamp_eff_ts
 from ..core.event import Event, middle_bit
-from ..quorum import supermajority
+from ..membership.quorum import supermajority
 from .ordering import consensus_sort
 
 

@@ -40,7 +40,7 @@ from ..common import KeyNotFoundError
 from ..core.event import Event, WireEvent, middle_bit
 from ..crypto.keys import pub_hex_to_bytes
 from ..store.inmem import RoundInfo, Store
-from ..quorum import supermajority
+from ..membership.quorum import supermajority
 from .ordering import consensus_sort
 
 _INT_MAX = np.iinfo(np.int64).max

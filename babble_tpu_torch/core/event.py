@@ -297,7 +297,13 @@ def new_event(
     """Mirror of NewEvent (reference event.go:90-105); timestamp defaults to
     now in int64 nanoseconds."""
     if timestamp is None:
-        timestamp = time.time_ns()
+        # Wall clock is the tool/test convenience default ONLY: every
+        # consensus call site passes an explicit timestamp from the
+        # Core.now_ns hook (the seam the chaos runner swaps for a
+        # seeded logical clock), which the consensus-nondeterminism
+        # taint pass enforces project-wide — this is the one sanctioned
+        # wall-clock entry into event bodies.
+        timestamp = time.time_ns()  # babble-lint: disable=consensus-nondeterminism
     body = EventBody(
         transactions=list(transactions),
         self_parent=parents[0],

@@ -8,13 +8,17 @@ The file name carries a hash of the source, so an edited source never
 loads a stale library, and a finished library is reused.  ``build``
 starts one ``nvcc`` for each source that needs it, all together.
 
-Nothing here runs at import: the CPU tests import every module of the
-port on machines without a CUDA toolkit.
+Nothing is built at import: the CPU tests import every module of the
+port on machines without a CUDA toolkit.  The toolkit is read once:
+``CUDA_HOME`` at import, the compiler's path at the first build.  A
+process picks its compiler once, and which compiler runs decides only
+whether a library exists, never a value the libraries compute.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,15 +33,19 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: the toolkit root named by the environment, read once at import
+CUDA_HOME = os.environ.get("CUDA_HOME", "")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+@functools.lru_cache(maxsize=1)
 def nvcc() -> str:
-    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on PATH,
-    else the toolkit's default install location."""
-    home = os.environ.get("CUDA_HOME")
-    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-        return os.path.join(home, "bin", "nvcc")
+    """The CUDA compiler, resolved at the first call and kept:
+    ``$CUDA_HOME/bin/nvcc``, else the one on PATH, else the toolkit's
+    default install location."""
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
     found = shutil.which("nvcc")
     if found:
         return found

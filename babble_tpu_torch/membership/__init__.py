@@ -13,7 +13,7 @@ peer set, then re-shapes its engine (join: one more participant column;
 leave: the column retired) and re-decides rounds > B under the new set.
 """
 
-from ..quorum import (
+from .quorum import (
     attestation_quorum, coin_period, supermajority, sync_quorum,
 )
 from .epoch import (

@@ -1,9 +1,11 @@
-"""Quorum arithmetic — the port's copy of ``membership/quorum.py``.
+"""Epoch-aware quorum arithmetic — the port's copy of the JAX package's
+``membership/quorum.py``, at the same path, the ONE place thresholds live.
 
 A leaf module (standard library only): the port keeps its own copy so
 that it imports nothing of the JAX package.  Every threshold routes
 through these helpers with the epoch's active participant count, never
-a stale ``n``.
+a stale ``n``; the ``stale-quorum-math`` babble-lint rule
+(``analysis/quorummath.py``) flags any inlined form outside this file.
 """
 
 from __future__ import annotations

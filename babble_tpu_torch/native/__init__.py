@@ -22,8 +22,10 @@ no silent fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 from typing import Dict
@@ -68,6 +70,14 @@ SIGNATURES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def compiler(cxx: str) -> str:
+    """The path of the C++ compiler ``cxx``, looked up on PATH once a
+    process, as ``cuda_build.nvcc`` is; a name not found stays as given,
+    so the build's error names it."""
+    return shutil.which(cxx) or cxx
+
+
 def source_path(name: str) -> str:
     return os.path.join(SRC_DIR, f"{name}.cpp")
 
@@ -88,7 +98,7 @@ def build(name: str) -> str:
     os.makedirs(os.path.dirname(out), exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(out), suffix=".tmp")
     os.close(fd)
-    cmd = [CXX, *CXX_FLAGS, source_path(name), "-o", tmp]
+    cmd = [compiler(CXX), *CXX_FLAGS, source_path(name), "-o", tmp]
     try:
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True,

@@ -25,7 +25,7 @@ from ..core.event import Event, WireEvent, new_event
 from ..crypto.keys import KeyPair
 from ..obs import Registry
 from ..ops.forks import ParentUnknownError
-from ..quorum import sync_quorum
+from ..membership.quorum import sync_quorum
 from ..store.checkpoint import engine_mode
 from ..wal import WriteAheadLog
 

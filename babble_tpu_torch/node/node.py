@@ -74,7 +74,7 @@ from ..obs import (
     Registry,
     SpanTracer,
 )
-from ..quorum import attestation_quorum, supermajority
+from ..membership.quorum import attestation_quorum, supermajority
 from ..store.checkpoint import (
     engine_mode, load_snapshot, save_checkpoint, snapshot_bytes,
 )

@@ -51,7 +51,7 @@ import torch
 
 from ..core.dag import clamp_eff_ts
 from ..core.event import Event
-from ..quorum import supermajority
+from ..membership.quorum import supermajority
 from .state import (
     I32, INT32_MAX, INT64_MAX, bucket, fd_reverse_scan_wins, sanitize,
     set_sentinel,

@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..quorum import supermajority
+from ..membership.quorum import supermajority
 from .pack import lane_count, pack_bits
 
 I8 = torch.int8

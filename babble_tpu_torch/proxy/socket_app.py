@@ -111,8 +111,12 @@ class SocketAppProxy:
                 f"{method} ack not in after {wait:.1f} s; still awaited "
                 f"on its connection, not sent again") from None
         finally:
+            # single-caller contract: the node's commit loop calls
+            # commit_tx/commit_batch one at a time and awaits each
+            # (node/node.py's sequential commit loop), so no other task
+            # runs _commit between the write above and this one
             if task.done() and self._inflight is inflight:
-                self._inflight = None
+                self._inflight = None  # babble-lint: disable=await-state-race
 
     async def commit_tx(self, tx: bytes) -> None:
         wire = b64e(tx)

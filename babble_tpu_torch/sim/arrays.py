@@ -324,7 +324,7 @@ def random_byzantine_fork_arrays(
     and the batch's numpy arrays (``ForkBatch`` field names)."""
     from ..ops.forks import ForkConfig
     from ..ops.state import INT32_MAX
-    from ..quorum import supermajority
+    from ..membership.quorum import supermajority
 
     rng = np.random.default_rng(seed)
     k = 2

@@ -31,7 +31,7 @@ from ..crypto.keys import P256_ORDER, KeyPair, key_from_scalar, sha256
 from ..membership.transition import (
     MEMBERSHIP_MAGIC, MembershipTx, build_membership_tx,
 )
-from ..quorum import supermajority
+from ..membership.quorum import supermajority
 
 
 @dataclass

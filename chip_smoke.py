@@ -166,7 +166,19 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    instead of sending the batch again), and then what one large sync
    and one fast-forward frame cost through ``net/codec.py``.  The nodes
    run in their own processes, so la_walk's count is not visible here;
-   the engine never takes the walk mode (phases 6-8).
+   the engine never takes the walk mode (phases 6-8).  The fleet's
+   observability sweeps run against it as ``python -m
+   babble_tpu_torch.cli`` processes (``fleet.py``): after round 1,
+   ``testnet health --json`` must exit 0 with 4 rows, every one ``ok``,
+   and no divergence; ``testnet trace`` of the last committed
+   transaction must stitch its lineage from all 4 nodes; and ``fleet
+   watch --once``, ``fleet scrape --rollup``, ``fleet health`` and
+   ``fleet trace`` over a hosts file of ``127.0.0.1:<service port>``
+   lines must give the same verdicts (the rollup with no divergence).
+   While node 3 is down after its first SIGKILL, one ``testnet health``
+   sweep must exit 1 naming node 3 unreachable; after its restart, a
+   sweep must exit 0 again.  Each sweep's wall ms (on the card's host)
+   is printed.
 10. chaos — the chaos plane (``chaos/``).  (a) The deterministic
    in-memory cluster runner (``run_scenario(..., device="cuda")``: real
    ``Node``s over ``FaultyTransport``-wrapped in-memory transports, one
@@ -289,6 +301,13 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    rolling windows, one ``run_consensus`` every 64 inserts; rounds and
    witness flags after every call, then commit order, round received,
    consensus timestamps, lcr and fame).
+14. host tools — run right after phase 9: ``python -m
+   babble_tpu_torch.cli lint --json babble_tpu_torch`` (babble-lint, the
+   port's ``analysis/``, with the port's own format manifest) must exit
+   0 with no live finding, and ``fleet conf`` must write a 4-host layout
+   into a temporary directory: 4 datadirs with a key each, one shared
+   ``peers.json`` against the hosts' addresses, and executable deploy
+   scripts.  It prints both wall times (the card's host).
 
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -2422,6 +2441,90 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
     def metrics(i):
         return scrape(tn.fetch_metrics(ports.of(i)["service"]))
 
+    # the fleet's observability sweeps (fleet.py), each a `cli` process
+    hosts_file = os.path.join(tmp, "hosts.txt")
+    with open(hosts_file, "w") as f:
+        f.writelines(f"{ports.of(i)['service']}\n" for i in range(n))
+    sweep_ms = []
+
+    def verb(*argv):
+        """One verb of the port's cli in its own process, timed."""
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "babble_tpu_torch.cli", *argv],
+            env=runner._env(), capture_output=True, text=True, timeout=120)
+        ms = (time.perf_counter() - t) * 1e3
+        sweep_ms.append(ms)
+        print(f"[tcp] sweep `{' '.join(argv[:2])}`: exit "
+              f"{proc.returncode}, {ms:.1f} ms host wall",
+              flush=True)
+        return proc
+
+    def health(*via):
+        """One health sweep, ``testnet health`` unless ``via`` names the
+        fleet form: (exit code, the JSON document)."""
+        argv = via or ("testnet", "health", "--n", str(n), "--base_port",
+                       str(base))
+        proc = verb(*argv, "--json")
+        return proc.returncode, json.loads(proc.stdout)
+
+    def all_ok(doc):
+        return (len(doc["nodes"]) == n and not doc["divergence"]
+                and all(r.get("health", {}).get("status") == "ok"
+                        for r in doc["nodes"]))
+
+    def health_until_ok(what):
+        t0 = time.monotonic()
+        while True:
+            rc, doc = health()
+            if rc == 0 and all_ok(doc):
+                return time.monotonic() - t0
+            if time.monotonic() - t0 > 120:
+                raise AssertionError(f"testnet health {what}: exit {rc}, "
+                                     f"{json.dumps(doc)[:2000]}")
+            time.sleep(1.0)
+
+    def trace(txid, *via):
+        argv = via or ("testnet", "trace", txid, "--n", str(n),
+                       "--base_port", str(base))
+        proc = verb(*argv, "--json")
+        st = json.loads(proc.stdout)
+        if proc.returncode or st["errors"] or len(st["nodes"]) != n or \
+                not {"commit", "deliver"} <= set(st["stages"]):
+            raise AssertionError(f"`{' '.join(argv[:2])}` of {txid}: exit "
+                                 f"{proc.returncode}, {len(st['nodes'])} "
+                                 f"nodes, stages {st['stages']}, errors "
+                                 f"{st['errors']}")
+        return st
+
+    def sweeps(tx):
+        """Every sweep verb over the whole fleet, every node up: the
+        testnet forms, then the fleet forms over the hosts file."""
+        waited = health_until_ok("after round 1")
+        txid = hashlib.sha256(tx).hexdigest()
+        st = trace(txid)
+        hosts = ("--hosts", hosts_file)
+        watch = verb("fleet", "watch", *hosts, "--once")
+        if watch.returncode or watch.stdout.count("<") or \
+                watch.stdout.count("\n") < n + 1:
+            raise AssertionError(f"fleet watch: exit {watch.returncode}, "
+                                 f"{watch.stdout[-2000:]}")
+        roll = verb("fleet", "scrape", *hosts, "--rollup")
+        if roll.returncode or f"# fleet rollup over {n} hosts\n" not in \
+                roll.stdout or "FLEET DIVERGENCE" in roll.stdout:
+            raise AssertionError(f"fleet scrape --rollup: exit "
+                                 f"{roll.returncode}, {roll.stdout[:2000]}")
+        rc, doc = health("fleet", "health", *hosts)
+        if rc or not all_ok(doc):
+            raise AssertionError(f"fleet health: exit {rc}, "
+                                 f"{json.dumps(doc)[:2000]}")
+        fst = trace(txid, "fleet", "trace", txid, *hosts)
+        if set(fst["stages"]) != set(st["stages"]):
+            raise AssertionError(f"fleet trace stages {fst['stages']} != "
+                                 f"testnet trace's {st['stages']}")
+        info["sweeps"] = (waited, len(st["timeline"]), st["stages"],
+                          len(roll.stdout.splitlines()))
+
     def log_check():
         check = NodeLogCheck(info["down"])
         for i, d in enumerate(ddir):
@@ -2495,7 +2598,14 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
                 os.replace(logs[crash], befores[k - 1])
             offsets.pop(logs[crash], None)
             nlines.pop(logs[crash], None)
-        await asyncio.sleep(T["down_s"])
+        if k == 1:
+            rc, doc = await loop.run_in_executor(None, health)
+            down = [(r["host"], r["kind"]) for r in doc["nodes"]
+                    if "health" not in r]
+            if rc != 1 or down != [(ports.of(crash)["service"],
+                                    "unreachable")]:
+                raise AssertionError(f"testnet health with node {crash} "
+                                     f"down: exit {rc}, down {down}")
         runner.spawn_client(crash)
         t = time.perf_counter()
         runner.restart_node(crash)
@@ -2506,6 +2616,9 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
         info[f"at_back{k}"] = await loop.run_in_executor(
             None, tn.fetch_stats, ports.of(0)["service"])
         info[f"down{k}_s"] = time.perf_counter() - t + T["down_s"]
+        if k == 1:
+            info["ok_again_s"] = await loop.run_in_executor(
+                None, health_until_ok, f"after node {crash}'s restart")
 
     async def round1():
         loop = asyncio.get_running_loop()
@@ -2594,6 +2707,7 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
         info["metrics"] = [await loop.run_in_executor(None, metrics, i)
                            for i in range(n)]
         info["apps1"] = [lines(p) for p in logs]
+        await loop.run_in_executor(None, sweeps, info["apps1"][0][-1])
 
     async def round2():
         """More traffic; node 3 is killed a seeded delay after a seeded
@@ -2870,6 +2984,17 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
           f"busy {tr['busy_ms']:.1f} ms of the trace's {tr['window_ms']:.1f} "
           f"ms = {tr['busy_ms'] / max(tr['window_ms'], 1e-9):.4f}; trace "
           f"{tr['mb']:.2f} MB", flush=True)
+    waited, steps, stages, roll_lines = info["sweeps"]
+    print(f"[tcp] sweeps: {len(sweep_ms)} `cli` processes (testnet "
+          f"health|trace, fleet watch|scrape --rollup|health|trace), wall "
+          f"p50 {pctl(sweep_ms, 0.5):.1f} ms, max {max(sweep_ms):.1f} ms "
+          f"(host wall); after round 1 every node ok with no "
+          f"divergence ({waited:.1f} s of polling), the last transaction "
+          f"traced on all {n} nodes ({steps} records, stages "
+          f"{sorted(stages)}), "
+          f"rollup {roll_lines} lines; node {crash} named unreachable while "
+          f"down, every node ok {info['ok_again_s']:.1f} s after its "
+          f"restart's /Stats; {card}", flush=True)
     acks = sorted(probe_acks)
     if acks:
         worst = acks[-1] / probe_mib
@@ -2880,6 +3005,66 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
               f"{worst * 1e3:.1f} ms a MiB against the proxy's wait of "
               f"1,000 ms a MiB, a margin of {1 / worst:.1f}x", flush=True)
     codec_costs(device)
+
+
+def phase_host_tools(card: str) -> None:
+    """Phase 14: babble-lint over the port and a fleet's conf, as
+    ``python -m babble_tpu_torch.cli`` processes from the checkout's
+    root (module docstring)."""
+    import shutil
+    import stat
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+
+    def cli(*argv):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "babble_tpu_torch.cli", *argv], cwd=root,
+            env=env, capture_output=True, text=True, timeout=300)
+        return proc, time.perf_counter() - t
+
+    lint, lint_s = cli("lint", "--json", "babble_tpu_torch")
+    found = [json.loads(line) for line in lint.stdout.splitlines() if line]
+    live = [f for f in found if not f["suppressed"]]
+    if lint.returncode or live:
+        raise AssertionError(f"lint: exit {lint.returncode}, live findings "
+                             f"{live[:5]}; {lint.stderr[-2000:]}")
+    tmp = tempfile.mkdtemp(prefix="babble-fleet-conf-")
+    try:
+        hosts = [f"10.0.0.{i + 1}" for i in range(4)]
+        with open(os.path.join(tmp, "hosts.txt"), "w") as f:
+            f.write("\n".join(hosts) + "\n")
+        conf, conf_s = cli("fleet", "conf", "--hosts",
+                           os.path.join(tmp, "hosts.txt"), "--dir", tmp)
+        if conf.returncode:
+            raise AssertionError(f"fleet conf: exit {conf.returncode}, "
+                                 f"{conf.stderr[-2000:]}")
+        dirs = sorted(os.listdir(os.path.join(tmp, "conf")))
+        peers = set()
+        for d in dirs:
+            path = os.path.join(tmp, "conf", d)
+            if sorted(os.listdir(path)) != ["peers.json", "priv_key.pem"]:
+                raise AssertionError(f"fleet conf: {d} holds "
+                                     f"{os.listdir(path)}")
+            with open(os.path.join(path, "peers.json")) as f:
+                peers.add(f.read())
+        addrs = sorted(p["NetAddr"] for p in json.loads(min(peers)))
+        scripts = [name for name in ("start.sh", "stop.sh", "push.sh")
+                   if os.stat(os.path.join(tmp, name)).st_mode & stat.S_IXUSR]
+        if dirs != [f"node{i}" for i in range(4)] or len(peers) != 1 or \
+                addrs != [f"{h}:1337" for h in hosts] or len(scripts) != 3:
+            raise AssertionError(f"fleet conf: datadirs {dirs}, "
+                                 f"{len(peers)} peers.json texts, addresses "
+                                 f"{addrs}, executable scripts {scripts}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[host] lint: `cli lint --json babble_tpu_torch` exit 0, "
+          f"{len(found)} findings, all suppressed by name, none live, "
+          f"{lint_s:.1f} s host wall; fleet conf: 4 datadirs, one peers.json, "
+          f"{len(scripts)} executable deploy scripts, {conf_s:.1f} s host "
+          f"wall; {card}", flush=True)
 
 
 def chaos_summary(result) -> dict:
@@ -4426,6 +4611,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_tcp_testnet(card)
     print(f"[tcp] phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_host_tools(card)
+    print(f"[host] phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
     la_walk.launches = 0
     t0 = time.perf_counter()

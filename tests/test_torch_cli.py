@@ -9,8 +9,8 @@ CPU.
   same identity, and prints the JAX package's PEM;
 - ``sim --device cpu`` prints JAX ``cli sim``'s ``ordered``,
   ``last_consensus_round`` and ``max_round`` on the same DAG;
-- the verbs whose machinery is not ported raise naming their
-  ROADMAP.md item, ``run``'s byzantine flags (``--byzantine``,
+- ``fleet``, ``lint`` and ``testnet health|trace`` give the JAX cli's
+  exit code and output on the same inputs, ``run``'s byzantine flags (``--byzantine``,
   ``--fork_k``, ``--fork_caps``) and wide flags (``--engine wide``,
   ``--wide_caps``) reach the node's engine as the JAX cli sets them,
   and ``run`` without ``--device`` takes the card (so it fails on a
@@ -298,16 +298,34 @@ def test_chaos_run_flags_reach_chaos_wrap(tmp_path, monkeypatch, flags,
     assert len(seen["peers"]) == 2 and seen["addr"].startswith("127.0.0.1:")
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["fleet", "watch", "--hosts", "h"], "item 5e"),
-    (["lint", "--json", "x"], "item 5e"),
-    (["testnet", "health"], "item 5e"),
-    (["testnet", "trace", "ab"], "item 5e"),
+@pytest.mark.parametrize("argv", [
+    ["fleet", "watch", "--hosts", "h"],
+    ["lint", "--json", "x"],
+    ["testnet", "health"],
+    ["testnet", "trace", "ab"],
 ])
-def test_unported_verbs_raise_naming_their_item(argv, item):
-    with pytest.raises(SystemExit) as err:
-        pcli.main(argv)
-    assert f"ROADMAP.md Queue 1, {item}" in str(err.value)
+def test_fleet_lint_and_testnet_sweep_verbs_equal_jax(argv, tmp_path,
+                                                      monkeypatch, capsys):
+    """Formerly ``test_unported_verbs_raise_naming_their_item``: the
+    four verbs refused naming ROADMAP item 5e until the port had them.
+    Now each gives the JAX cli's outcome on the same input: a hosts
+    file that does not exist, a lint path that does not exist (exit 2),
+    and a sweep of a testnet that is not running (exit 1, every node
+    unreachable)."""
+    monkeypatch.chdir(tmp_path)
+    outcomes = []
+    for cli in (pcli, jcli):
+        try:
+            rc = cli.main(list(argv))
+        except Exception as e:      # the same exception from both
+            rc = (type(e), str(e))
+        out = capsys.readouterr()
+        outcomes.append((rc, out.out, out.err))
+    assert outcomes[0] == outcomes[1]
+    rc = outcomes[0][0]
+    assert rc == {"fleet": (FileNotFoundError, "[Errno 2] No such file or "
+                                               "directory: 'h'"),
+                  "lint": 2, "testnet": 1}[argv[0]], outcomes[0]
 
 
 def test_run_takes_the_card_by_default(tmp_path):

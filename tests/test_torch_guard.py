@@ -6,8 +6,10 @@ committed transactions, then a restart from the write-ahead log), its
 cli's ``keygen`` and ``sim --device cpu`` as ``python -m`` runs them, a
 round trip between two of its TCP transports, a chaos scenario through
 its runner (the disk-rot mini: crash, checkpoint and WAL rot,
-recovery), its C++ generator and baseline (built by its own loader) and
-its straight-line oracle, with all four blocked."""
+recovery), its C++ generator and baseline (built by its own loader),
+its straight-line oracle, and its host tools (``lint`` over the whole
+port, ``fleet conf`` and a ``testnet health`` sweep), with all four
+blocked."""
 
 import ast
 import os
@@ -41,7 +43,11 @@ def test_port_sources_import_no_jax():
             "chaos/injector.py", "chaos/transport.py", "chaos/invariants.py",
             "chaos/disk.py", "chaos/forge.py", "chaos/scenarios.py",
             "chaos/scenario.py", "native/__init__.py",
-            "consensus/oracle.py", "store/inmem.py"} <= scanned
+            "consensus/oracle.py", "store/inmem.py", "fleet.py",
+            "membership/quorum.py"} <= scanned
+    analysis = os.path.join(REPO, "babble_tpu", "analysis")
+    assert {f"analysis/{f}" for f in os.listdir(analysis)
+            if f.endswith(".py")} <= scanned
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -183,14 +189,16 @@ import json
 import runpy
 
 
-def cli(*argv):
+def cli(*argv, rc=0):
     out = io.StringIO()
     sys.argv = ["babble_tpu_torch.cli", *argv]
+    code = 0
     with contextlib.redirect_stdout(out):
         try:
             runpy.run_module("babble_tpu_torch.cli", run_name="__main__")
         except SystemExit as e:
-            assert e.code == 0, e.code
+            code = e.code
+    assert code == rc, (code, out.getvalue()[-2000:])
     return out.getvalue()
 
 
@@ -250,6 +258,26 @@ for ev in gen.events:
     oracle.insert_event(ev.clone())
 oracle.run_consensus()
 assert len(oracle.consensus_events()) > 0
+blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
+           and sys.modules[m] is not None]
+# the host tools: babble-lint over the whole port, a fleet's conf and
+# deploy scripts, and a health sweep of a testnet that is not running
+assert cli("lint", "babble_tpu_torch") == ""
+import os
+import socket
+conf = tempfile.mkdtemp()
+with open(conf + "/hosts.txt", "w") as f:
+    f.write("10.0.0.1\n10.0.0.2\n10.0.0.3\n")
+cli("fleet", "conf", "--hosts", conf + "/hosts.txt", "--dir", conf)
+assert sorted(os.listdir(conf + "/conf")) == ["node0", "node1", "node2"]
+assert os.access(conf + "/start.sh", os.X_OK)
+sock = socket.socket()
+sock.bind(("127.0.0.1", 0))
+base = sock.getsockname()[1]
+sock.close()
+health = cli("testnet", "health", "--n", "2", "--base_port",
+             str(base - 3000), rc=1)
+assert health.count("<unreachable") == 2, health
 blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
            and sys.modules[m] is not None]
 assert not blocked, blocked

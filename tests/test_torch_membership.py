@@ -34,7 +34,8 @@ from babble_tpu.ops import epoch as jops_epoch
 from babble_tpu.ops import state as jstate
 from babble_tpu.sim.generator import random_gossip_dag as jgossip
 
-from babble_tpu_torch import codec, quorum, TorchHashgraph
+from babble_tpu_torch import codec, TorchHashgraph
+from babble_tpu_torch.membership import quorum
 from babble_tpu_torch.consensus import engine as pengine
 from babble_tpu_torch.core import event as pevent
 from babble_tpu_torch.crypto import _fallback as pfb

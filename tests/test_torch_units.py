@@ -19,7 +19,7 @@ from babble_tpu.ops.pallas_ingest import la_walk as jax_la_walk
 from babble_tpu.ops.pallas_ingest import unpack_la
 from babble_tpu.sim import arrays as jarrays
 
-from babble_tpu_torch import quorum
+from babble_tpu_torch.membership import quorum
 from babble_tpu_torch.ops import pack, ss, state
 from babble_tpu_torch.ops.pallas_ingest import (
     la_walk, la_walk_plain, walk_supported,

@@ -199,7 +199,9 @@ def test_wide_node_fleet_commits_one_order():
     """Three port Nodes on the wide engine over the in-memory network
     (asyncio gossip, heartbeat): every transaction committed everywhere
     in one order, with the window rolling under the seq_window
-    contract."""
+    contract. The window rolls with gossip, and gossip under CPU load is
+    slower than commits, so the fleet keeps gossiping until every proxy
+    holds the 24 transactions and some node's window has rolled."""
     async def go():
         net = InmemNetwork()
         keys = [pkeys.key_from_scalar(31 + i) for i in range(3)]
@@ -222,7 +224,8 @@ def test_wide_node_fleet_commits_one_order():
             await proxies[i % 3].submit_tx(b"tx%d" % i)
             await asyncio.sleep(0.02)
         try:
-            while min(len(p.committed) for p in proxies) < 24:
+            while (min(len(p.committed) for p in proxies) < 24
+                   or max(nd.core.hg.dag.slot_base for nd in nodes) == 0):
                 await asyncio.sleep(0.05)
         finally:
             for nd in nodes:
