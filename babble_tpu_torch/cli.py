@@ -19,8 +19,12 @@
 
 The flags and defaults are the JAX package's, plus ``--device`` (the
 card by default; ``--device cpu`` runs every stage in plain torch on the
-CPU).  The port has no XLA cache, so no ``--jax_cache``.  This module
-imports no torch: ``lint`` and the fleet and testnet sweeps run without
+CPU).  ``run --jax_cache`` keeps JAX's name and default
+(``<datadir>/jax_cache``, ``off`` for none) for the port's cache root:
+the AOT shape manifest (``ops/aot.py``), which ``Node`` prewarms from at
+boot unless ``--no_aot_prewarm``.  The kernel libraries stay in the
+package's hash-named ``_build/``, shared by every node of a checkout.  This
+module imports no torch: ``lint`` and the fleet and testnet sweeps run without
 it, and the verbs that drive an engine import it when they run.
 """
 
@@ -92,6 +96,17 @@ def _device_name(device) -> str:
 
 
 async def _run_node(args) -> int:
+    # the cache root, shared by every node under one testnet root: the
+    # AOT shape manifest there is what Node prewarms from at boot
+    cache_dir = ""
+    if args.jax_cache != "off":
+        from .ops import aot
+
+        cache_dir = args.jax_cache or os.path.join(
+            os.path.abspath(args.datadir), "jax_cache"
+        )
+        aot.configure(cache_dir)
+
     from .crypto.keys import PemKeyFile
     from .net.peers import JSONPeers
     from .net.tcp_transport import new_tcp_transport
@@ -209,6 +224,7 @@ async def _run_node(args) -> int:
         kernel_class=args.kernel_class,
         packed_votes=not args.no_packed_votes,
         frontier=not args.no_frontier,
+        aot_dir="" if args.no_aot_prewarm else cache_dir,
         lineage=not args.no_lineage,
         flight=not args.no_flight,
         phase_probe=args.phase_probe,
@@ -871,9 +887,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "order phase (bit-identical; the event-axis "
                          "frontier slice is the default)")
     rn.add_argument("--no_aot_prewarm", action="store_true",
-                    help="skip the AOT prewarm at boot (the port has "
-                         "none yet, ROADMAP item 10: accepted, nothing "
-                         "to skip)")
+                    help="skip the AOT prewarm of the recorded shapes at "
+                         "boot, and the recording of new ones")
+    rn.add_argument("--jax_cache", default="",
+                    help="cache root for the AOT shape manifest "
+                         "('' = <datadir>/jax_cache, 'off' = none)")
     rn.add_argument("--checkpoint_dir", default="",
                     help="resume from + periodically checkpoint to this dir")
     rn.add_argument("--checkpoint_interval", type=float, default=30.0,

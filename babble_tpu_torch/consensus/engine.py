@@ -30,9 +30,10 @@ re-shapes (``apply_epoch_transition``: a join appends a participant
 column, a leave retires one) and re-decides them under the new peer
 set.  ``membership_log`` is the chain of custody a joiner verifies.
 
-Not in this port yet: the AOT executable map (ROADMAP.md Queue 1, item
-10, CUDA graphs).  Entry points run on ``device`` ("cuda" unless the
-caller asks for the CPU).
+AOT prewarm (``ops/aot.py``): ``_aot`` holds the live-flush keys warmed
+at boot, and with ``_aot_dir`` set each key the engine flushes is
+recorded in the shape manifest.  Entry points run on ``device`` ("cuda"
+unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from ..common import OffsetList
 from ..core.dag import HostDag
 from ..core.event import Event, WireEvent
 from ..membership.transition import MEMBERSHIP_MAGIC, parse_membership_tx
+from ..ops import aot as aot_ops
 from ..ops import fame as fame_ops
 from ..ops import flush as flush_ops
 from ..ops import ingest as ingest_ops
@@ -189,6 +191,12 @@ class TorchHashgraph:
         self._max_round_cache = -1        # host mirror of state.max_round
         self._ts_lo: Optional[int] = None  # ts32 span guard mirrors
         self._ts_hi: Optional[int] = None
+        #: AOT prewarm (ops/aot.prewarm_engine): the live-flush keys
+        #: (W, F, gate, kpad, tpad, bpad) warmed at boot, the manifest
+        #: directory keys are recorded in, and the keys recorded so far
+        self._aot: set = set()
+        self._aot_dir: Optional[str] = None
+        self._aot_recorded: set = set()
 
         # rolling-window policy (reference caches.go semantics):
         # - seq_window: newest events per creator always kept
@@ -350,6 +358,7 @@ class TorchHashgraph:
             self.state = grow_state(self.state, self.cfg, new_cfg)
             self.cfg = new_cfg
             self._view = {}
+            self._aot = set()   # keys were warmed for the old shapes
 
             rnd = self._arr("round")
             ne = self.dag.n_events - base
@@ -440,6 +449,7 @@ class TorchHashgraph:
             self.state = grow_state(self.state, cfg, new_cfg)
             self.cfg = new_cfg
             self._view = {}
+            self._aot = set()   # keys were warmed for the old shapes
 
     # ------------------------------------------------------------------
     # consensus pipeline
@@ -636,15 +646,23 @@ class TorchHashgraph:
         # sized after build_batch: its _ensure_capacity may have grown
         # e_cap, and bucket_f clamps against e1
         f = self._frontier_f()
+        key = (w, f, self.finality_gate, batch.sp.shape[0]) \
+            + tuple(batch.sched.shape)
         self._last_phase_timings = None
         if self.phase_probe:
             self.state, self._last_phase_timings = flush_ops.probed_flush(
                 self.cfg, w, f, self.finality_gate, self.state, batch
             )
         else:
+            if key not in self._aot:
+                aot_ops.note_dispatch((self.cfg, key))
             self.state = flush_ops.live_flush(
                 self.cfg, w, f, self.finality_gate, self.state, batch
             )
+            if self._aot_dir is not None and key not in self._aot_recorded:
+                # record the key so that the next boot warms it
+                self._aot_recorded.add(key)
+                aot_ops.record_shape(self._aot_dir, self.cfg, key)
         self.last_flush_bytes = flush_ops.flush_bytes_estimate(
             self.cfg, w, k_pending, f
         )
@@ -830,6 +848,7 @@ class TorchHashgraph:
         self.state = state_from_numpy(new_cfg, DagState(**arrays),
                                       device=self.device)
         self._view = {}
+        self._aot = set()   # keys were warmed for the old config
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()

@@ -45,6 +45,7 @@ import torch
 
 from ..common import TooLateError
 from ..core.event import Event, FullWireEvent
+from ..ops import aot as aot_ops
 from ..ops.forks import (
     FAME_TRUE,
     FAME_UNDEFINED,
@@ -99,6 +100,10 @@ class ForkHashgraph:
         # (initial_caps) collapses the demand-driven growth sequence to
         # one compiled shape at boot (Config.fork_caps rationale).
         self._caps = tuple(initial_caps) if initial_caps else (0, 0, 0)
+        #: AOT manifest directory (ops/aot.prewarm_engine): when set,
+        #: every pipeline shape run is recorded for the next boot's
+        #: prewarm
+        self._aot_dir: Optional[str] = None
 
     def pre_size(self, caps: tuple) -> None:
         """Raise the monotone pipeline capacities to at least ``caps``
@@ -301,10 +306,16 @@ class ForkHashgraph:
                 r_cap=r_cap,
             )
             batch = self.dag.build_batch(cfg, self.device)
+            aot_ops.note_dispatch((cfg, tuple(batch.sched.shape)))
             out = fork_pipeline(cfg, batch)
             if int(out.max_round) < cfg.r_cap - 1:
                 break
             r_cap *= 2      # saturated: recompute with headroom
+        if self._aot_dir is not None:
+            aot_ops.record_fork_caps(
+                self._aot_dir, self.n, self.k, self._caps,
+                sched=tuple(batch.sched.shape),
+            )
         self._out = (cfg, out)
         self._host = {}
         self._dirty = False

@@ -13,6 +13,11 @@ port on machines without a CUDA toolkit.  The toolkit is read once:
 ``CUDA_HOME`` at import, the compiler's path at the first build.  A
 process picks its compiler once, and which compiler runs decides only
 whether a library exists, never a value the libraries compute.
+
+Every build reports to ``LISTENERS`` (``ops/aot.py install_listeners``
+adds the compile counters): ``"cache_hits"`` for a library found built,
+``"cache_misses"`` for one that had to be built, ``"xla_compiles"`` for
+a compile that finished.  ``native/`` reports its g++ builds here too.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -37,6 +42,15 @@ NVCC_FLAGS = (
 CUDA_HOME = os.environ.get("CUDA_HOME", "")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: callables taking one build event name (module docstring)
+LISTENERS: List[Callable[[str], None]] = []
+
+
+def emit(event: str) -> None:
+    """Hand one build event to every listener."""
+    for fn in LISTENERS:
+        fn(event)
 
 
 @functools.lru_cache(maxsize=1)
@@ -77,7 +91,9 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         out = library_path(name)
         if os.path.exists(out):
             logs[name] = "cached"
+            emit("cache_hits")
             continue
+        emit("cache_misses")
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
         procs[name] = (subprocess.Popen(
@@ -92,6 +108,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{text}")
             continue
         os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+        emit("xla_compiles")
     if failed:
         raise RuntimeError("CUDA build failed: " + "\n".join(failed))
     return logs

@@ -11,8 +11,9 @@ the JAX package's ``native/``.
 
 The sources are the JAX package's, byte for byte.  Each compiles with
 ``g++ -O3 -shared -fPIC -std=c++17`` at first use into
-``babble_tpu_torch/_build/lib<name>-<hash>.so``; the hash is of the
-source, so an edited source never loads a stale library.  A build
+``babble_tpu_torch/_build/lib<name>-<hash>.so``; the hash is of the source,
+so an edited source never loads a stale library.  Builds report to
+``cuda_build.LISTENERS`` as the CUDA builds do.  A build
 writes a temporary file and renames it into place, so processes that
 build one library at once (test workers, a booting testnet) each load a
 whole one.  A failed build raises with the compiler's output: there is
@@ -31,6 +32,8 @@ import tempfile
 from typing import Dict
 
 import numpy as np
+
+from .. import cuda_build
 
 SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(SRC_DIR), "_build")
@@ -94,7 +97,9 @@ def build(name: str) -> str:
     output if the compile fails or the compiler is missing."""
     out = library_path(name)
     if os.path.exists(out):
+        cuda_build.emit("cache_hits")
         return out
+    cuda_build.emit("cache_misses")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(out), suffix=".tmp")
     os.close(fd)
@@ -111,6 +116,7 @@ def build(name: str) -> str:
                 f"C++ build of {name} failed ({cmd[0]} exit "
                 f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+        cuda_build.emit("xla_compiles")
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -119,10 +119,11 @@ class Config:
     # height) instead of the full [E+1, N] column per round.  False
     # pins full-height scans.
     frontier: bool = True
-    # AOT compile cache: a directory makes the node pre-build its
-    # recorded live-flush shapes at boot.  Not ported yet: a node with
-    # aot_dir set raises NotImplementedError (the compile cache is
-    # ROADMAP.md Queue 1, item 10).  "" (the default) runs without.
+    # AOT prewarm (ops/aot.py): a directory makes the node record the
+    # shapes its engine runs there (babble_aot_manifest.json) and, on
+    # the card, run the recorded shapes once at boot, so a restart pays
+    # the CUDA context, the kernels' module loads and any kernel build
+    # before its first flush instead of in it.  "" disables the prewarm.
     aot_dir: str = ""
     # Maximum continuation frames one gossip may stream when a push
     # diff exceeds the per-frame event cap (deep catch-up pushes chain

@@ -489,6 +489,7 @@ class Core:
         self.hg.frontier = self.frontier
         if self.hg.cfg.packed != self.packed_votes:
             self.hg.cfg = self.hg.cfg._replace(packed=self.packed_votes)
+            self.hg._aot = set()   # keys were warmed for the old config
 
     def _rebind_engine_registry(self) -> None:
         """Point the current engine's instruments at this core's

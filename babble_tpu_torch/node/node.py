@@ -37,8 +37,10 @@ work run in the default executor, as in the JAX package, so several
 nodes of one process may drive the card from worker threads.  With
 ``Config.byzantine`` the ``Core`` runs the fork-aware ``ForkHashgraph``,
 and with ``Config.engine == "wide"`` the column-blocked
-``WideHashgraph``.  Not ported yet: the AOT prewarm (``Config.aot_dir``
-raises, ROADMAP.md Queue 1, item 10).
+``WideHashgraph``.  With ``Config.aot_dir`` the node records its
+engine's shapes, prewarms them at boot on the card (``ops/aot.py``; a
+CPU engine warms none) and shows the build and dispatch counters on
+``/metrics``.
 """
 
 from __future__ import annotations
@@ -86,11 +88,6 @@ from ..wal import WriteAheadLog
 from .config import Config
 from .core import Core
 from .peer_selector import RandomPeerSelector
-
-NOT_PORTED_AOT = (
-    "the AOT compile cache (Config.aot_dir) is not ported yet "
-    "(ROADMAP.md Queue 1, item 10: shape-keyed capture)"
-)
 
 #: /Stats timing keys are rendered from these phase histograms; the
 #: children are pre-created so /metrics shows the full consensus-phase
@@ -218,8 +215,6 @@ class Node:
         # (scan + truncate-at-first-bad-record); Core replays the
         # surviving tail on top of `engine` below, so head/seq resume
         # at the node's true published position
-        if conf.aot_dir:
-            raise NotImplementedError(NOT_PORTED_AOT)
         wal = None
         if conf.wal_dir:
             wal = WriteAheadLog(
@@ -249,6 +244,25 @@ class Node:
         if self.core.probing:
             self.flight.note("probe_armed",
                              quorum=self.core._probe_quorum)
+        # AOT prewarm (ops/aot.py): on the card, run the recorded shapes
+        # before the first flush (fused, fork or wide: prewarm_engine
+        # dispatches on the engine kind), moving the CUDA context, the
+        # kernel module loads and any kernel build out of it; a CPU node
+        # only records its shapes (aot.warms_at_boot).  The build and
+        # dispatch counters show on /metrics either way
+        if conf.aot_dir:
+            from ..ops import aot as _aot
+
+            _aot.bind_registry(self.registry)
+            if _aot.warms_at_boot(self.core.hg.device):
+                res = _aot.prewarm_engine(self.core.hg, conf.aot_dir)
+                self.logger.info(
+                    "AOT prewarm: %d programs compiled (%d from manifest)",
+                    res["compiled"], res["from_manifest"],
+                )
+            else:
+                _aot.configure(conf.aot_dir)
+                self.core.hg._aot_dir = conf.aot_dir
         self.core_lock = asyncio.Lock()
         self.peer_selector = RandomPeerSelector(peers, local_addr)
         #: membership-log entries already reconciled into the node's

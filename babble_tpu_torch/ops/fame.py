@@ -119,9 +119,9 @@ def decide_fame_impl(cfg: DagConfig, state: DagState,
     if gate:
         in_window = in_window & (i_idx <= head_round_min_math(cfg, state))
 
-    # The tallies are exact integers: keep the f32 matmul in full f32
-    # (TF32 would keep ~11 mantissa bits and could round a count).
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # The tallies are exact integers whatever the process's matmul
+    # precision: the operands are 0/1 (exact in TF32 and bf16 too) and
+    # each sum, at most N < 2^24, accumulates exactly in f32.
 
     # JAX runs the diagonal as a fori_loop with a device-valued bound;
     # here the bound is read once with .item()
@@ -269,8 +269,9 @@ def fame_vote_math(cfg: DagConfig, state: DagState, i: int, d: int, votes,
                    famous_i, valid_i, batch_window: bool):
     """One voting step at distance d for round i: round i+d's witnesses
     tally round i+d-1's votes on round i's witnesses.  The tally is an
-    f32 matmul of 0/1 operands with TF32 off (JAX: bf16 operands, f32
-    accumulation), exact either way.  Returns (votes', famous_i')."""
+    f32 matmul of 0/1 operands (JAX: bf16 operands, f32 accumulation),
+    exact under any matmul precision: 0 and 1 are exact in TF32 and
+    bf16, and the sums stay below 2^24.  Returns (votes', famous_i')."""
     sm, e_cap = cfg.super_majority, cfg.e_cap
     jl = i + d                      # window row of voting round j
     ws_j = _wrow(state.wslot, jl)
@@ -284,7 +285,6 @@ def fame_vote_math(cfg: DagConfig, state: DagState, i: int, d: int, votes,
     cnt = ss_counts(law_j, fdw_p, cfg.s_cap, batch_window)
     ss = ((cnt >= sm) & valid_j[:, None] & valid_p[None, :]).to(F32)
     tot = ss.sum(-1)                                    # [N]
-    torch.backends.cuda.matmul.allow_tf32 = False
     yays = ss @ votes                                   # [N_y, N_x]
     nays = tot[:, None] - yays
     v = yays >= nays

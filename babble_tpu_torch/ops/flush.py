@@ -156,8 +156,8 @@ def fame_window_impl(cfg: DagConfig, W: int, state: DagState,
         mb_pad = zpad(state.mbr[rows])                      # [2W, LP]
         votes = pack_bits(see_next_b.transpose(1, 2))       # [W, N, LP]
     else:
-        # exact integer counts: keep the f32 matmul out of TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
+        # exact integer counts under any matmul precision: 0/1
+        # operands, sums below 2^24 accumulated in f32
         ss_pad = zpad(ss_next_b.to(F32))                    # [2W, N, N]
         tot_pad = zpad(ss_pad[:W].sum(-1))                  # [2W, N]
         mb_pad = zpad(state.mbit[ws])                       # [2W, N]

@@ -11,7 +11,7 @@ Two exact formulations:
   positions, P[a, (k,s)] = [la[a,k] >= s], Q[b, (k,s)] = [fd[b,k] == s]:
   cnt = P @ Q^T.  In JAX an int8 matmul for the TPU's MXU; here an f32
   matmul, exact because the operands are 0/1 and the counts stay below
-  2^24 (with TF32 off on the card).
+  2^24 (under any matmul precision: 0 and 1 are exact in TF32 too).
 
 The dispatch (``ss_counts``) takes the one-hot form only where the JAX
 package would: on a TPU, at wide n and shallow chains.  ``use_onehot``
@@ -89,8 +89,9 @@ def ss_counts_onehot(
             (B, Kp - K), s_hi + 1, dtype=fd_rows.dtype,
             device=fd_rows.device)], 1)
     s_idx = torch.arange(S1, dtype=I32, device=la_rows.device)
-    # exact 0/1 products: keep the f32 matmul out of TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # exact under any matmul precision: 0/1 products (exact in TF32
+    # and bf16), each column k adds at most 1, so a count stays <= K
+    # < 2^24 in the f32 accumulator
     acc = torch.zeros((A, B), dtype=F32, device=la_rows.device)
     for k0 in range(0, Kp, kc):
         la_c = la_rows[:, k0:k0 + kc]

@@ -332,12 +332,12 @@ def _jits(cfg: DagConfig, C: int):
     def fame_tally(cnt_ab, valid_j, valid_p, valid_i, votes, famous_i,
                    mb_j, d):
         """One voting step (hazard (g)): the JAX package tallies with a
-        bf16 dot_general into f32; here an f32 matmul with TF32 off.
-        Votes and strong-see flags are 0/1 and the counts stay under
-        2^24, so both are exact."""
+        bf16 dot_general into f32; here an f32 matmul.  Votes and
+        strong-see flags are 0/1 (exact in TF32 and bf16 too) and the
+        counts stay under 2^24, so both are exact under any matmul
+        precision the process sets."""
         ss = ((cnt_ab >= sm) & valid_j[:, None] & valid_p[None, :]).to(F32)
         tot = ss.sum(-1)
-        torch.backends.cuda.matmul.allow_tf32 = False
         yays = ss @ votes
         nays = tot[:, None] - yays
         v = yays >= nays

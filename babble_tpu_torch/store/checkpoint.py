@@ -553,7 +553,7 @@ def _check_pending_entry(pend, label: str) -> None:
 
 def _check_host_meta(meta: dict) -> None:
     """Hostile-snapshot bounds for the host fields on the fused/wide
-    path (the byzantine twin is not ported):
+    path (the byzantine twin lives in _check_fork_meta):
     eviction horizons must be per-creator unique, in participant range
     and strictly below the declared chain windows, and the serialized
     commit digest must pass CommitDigest.check_meta — all before any

@@ -166,6 +166,10 @@ class TestnetRunner:
     #: joiner runs as an observer (--bootstrap_peers) until its signed
     #: join tx commits at an epoch boundary.
     joiners: int = 0
+    #: AOT prewarm at node boot (ops/aot.py): every node runs the shared
+    #: cache root's recorded shapes before its first flush.  False
+    #: passes --no_aot_prewarm (and the nodes record no shapes)
+    aot: bool = True
     #: every node's --device: the card by default; "cpu" runs each node
     #: in plain torch on the CPU (the nodes of one host share one card
     #: as separate CUDA contexts, time-sliced without MPS)
@@ -216,6 +220,8 @@ class TestnetRunner:
             # recovery truncates and the seq probe then covers
             args += ["--wal_dir", os.path.join(d, "wal"),
                      "--wal_fsync", "batch(32,50)"]
+        if not self.aot:
+            args.append("--no_aot_prewarm")
         if not self.with_clients:
             args.append("--no_client")
         return args
@@ -274,6 +280,14 @@ class TestnetRunner:
     def start(self) -> None:
         build_conf(self.base_dir, self.n, self.ports,
                    joiners=self.joiners)
+        if "--jax_cache" not in self.extra_node_args:
+            # one cache root for the whole fleet: every node records to
+            # and prewarms from one shape manifest
+            shared = os.path.join(self.base_dir, "jax_cache_shared")
+            os.makedirs(shared, exist_ok=True)
+            self.extra_node_args = list(self.extra_node_args) + [
+                "--jax_cache", shared
+            ]
         for i in range(self.n):
             self.procs.append(self._spawn_node(i))
             if self.with_clients:

@@ -184,8 +184,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    ``Node``s over ``FaultyTransport``-wrapped in-memory transports, one
    gossip exchange a step, consensus every 6 steps, a logical clock) on
    every canned scenario that runs the fused engine (``CHAOS_SWEEP``: 14
-   of the 15; fork-attack's byzantine engine is not ported) at seeds 1
-   and 2, and on the JAX package's mini-disk-rot at seeds 1 and 2: crash
+   of the 15; fork-attack runs in phase 11(d)) and on the JAX package's
+   mini-disk-rot, each at seeds 1 and 2 (``CHAOS_RUNS``), spread over
+   ``CHAOS_WORKERS`` processes that share the card: crash
    and WAL restarts, rotten checkpoints and torn WALs, eviction past a
    dead creator and fast-forward rejoins, a forged snapshot refused on
    its proof, joins and leaves under load and partition, clock skew and
@@ -308,6 +309,36 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    into a temporary directory: 4 datadirs with a key each, one shared
    ``peers.json`` against the hosts' addresses, and executable deploy
    scripts.  It prints both wall times (the card's host).
+15. prewarm — the AOT prewarm (``ops/aot.py``), run last.  Each part
+   runs fresh child processes on one new cache root, cold (empty) and
+   then warm (the root the cold child left).  (a) fused: bench.py's
+   stream child on the port (``prewarm_child_fused``: the DAG of
+   ``PREWARM_STREAM``, a gated ``TorchHashgraph``, ``prewarm_engine``
+   with limit 2, a flush every 8 events, then one bulk throughput
+   flush), and a third child with no prewarm (a ``--no_aot_prewarm``
+   boot); all commit ``PREWARM_EXPECT`` (the JAX engine's, pinned by
+   ``tests/test_torch_aot.py``) and the warm child's first flush
+   dispatches no unwarmed shape; it prints boot to first flush, the
+   prewarm's wall and result, the first flush's wall, flush p50/p95/max
+   by surface, events/s and the four counters.  (b) fork: the
+   ``test_torch_aot`` child DAG (``prewarm_child_fork``), cold then
+   warm: the cold child loads fork_ss at its first run, the warm one at
+   boot, where it pre-sizes and launches fork_ss; its caps do not grow,
+   it dispatches no cold pipeline shape, and both commit one order (the
+   library itself sits in the checkout's ``_build/``, which phase 2
+   filled, for both); then at config
+   4's width, a ``ForkHashgraph(n=1024, k=2)`` prewarmed from a
+   manifest holding phase 11(b)'s caps and schedule (``PREWARM_FORK4``),
+   with its wall, fork_ss launches and peak memory.  (c) wide: phase
+   12(d)'s four ``Core(wide=True)``, each engine prewarmed before the
+   replay, still equal ``WIDE_ENGINE_EXPECT``; a ``WideHashgraph`` at
+   config 3's width (``PREWARM_WIDE3``) prewarmed, with its wall and
+   ss_count launches.  (d) phase 9's nodes prewarm at boot (the
+   testnet's default, one shared cache root); phase 9 prints each
+   node's spawn to /Stats and the four counters from every node's
+   ``/metrics`` after node 3's last restart, and a fresh child
+   (``prewarm_child_manifest``) prewarms from the fleet's manifest as
+   a restarting node does, its first key and the rest timed apart.
 
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -445,6 +476,23 @@ TESTNET = dict(nodes=4, heartbeat=0.01, cache_size=50000, tcp_timeout=0.2,
 # over loopback TCP on run-testnet.sh's port layout; phase 8(b)'s
 # traffic, submitted over JSON-RPC, and node 3 SIGKILLed after half its
 # bursts and restarted from its WAL
+#: phase 15(a): bench.py's stream child (``_run_stream_child``) on the
+#: port, and its commit count and digest from the JAX package's engine
+#: (pinned on the CPU by tests/test_torch_aot.py)
+PREWARM_STREAM = dict(n=4, e=360, seed=17, every=8, limit=2)
+PREWARM_EXPECT = {
+    "ordered": 324,
+    "digest": "25e4d5870cc188aee9282048359b7143b11598436a8d0e86c19f59db933a812d",
+}
+#: phase 15(b): config 4's width (phase 11(b)'s ForkConfig and schedule)
+PREWARM_FORK4 = dict(n=1024, k=2, caps=(131072, 256, 16), sched=(3315, 32))
+#: phase 15(c): a wide engine at config 3's width (phase 12(b)'s s_cap and
+#: r_cap, a window of the whole DAG)
+PREWARM_WIDE3 = dict(n=1024, e_cap=100_000, s_cap=133, r_cap=16)
+#: the four series ops/aot.py keeps on a node's /metrics
+AOT_SERIES = ("babble_compile_cache_hits_total",
+              "babble_compile_cache_misses_total",
+              "babble_xla_compiles_total", "babble_jit_traces_total")
 TCP_TESTNET = dict(nodes=4, heartbeat_ms=10, cache_size=50000,
                    tcp_timeout_ms=200, txs_per_node=5000, burst=100,
                    burst_every=0.05, tx_bytes=64, crash_node=3, down_s=0.5,
@@ -468,6 +516,11 @@ CHAOS_SWEEP = [
     "stale-replay", "wan-lossy",
 ]
 CHAOS_SEEDS = (1, 2)
+#: phase 10(a)'s runs, and the processes they are dealt to in turn: the
+#: runs are host-bound, and one after another they took 250-330 s
+CHAOS_RUNS = [(name, seed) for name in CHAOS_SWEEP + ["mini-disk-rot"]
+              for seed in CHAOS_SEEDS]
+CHAOS_WORKERS = 4
 # phase 11(d): the canned scenarios that run the byzantine engine
 CHAOS_BYZANTINE = ["fork-attack"]
 CHAOS_MINI_DISKROT = {
@@ -2172,6 +2225,9 @@ class NodeLogCheck:
                ("Connection refused", "refused"),
                ("Connection reset by peer", "reset"),
                ("Broken pipe", "reset"),
+               # asyncio's ConnectionResetError from drain(): the write
+               # found the connection already lost under it
+               ("Connection lost", "reset"),
                ("bytes read on a total of", "end of stream"),
                ("connection closed", "end of stream"))
     NOTICES = ("WAL missing or truncated", "seq probe complete")
@@ -2355,11 +2411,12 @@ def codec_costs(device) -> None:
               flush=True)
 
 
-def phase_tcp_testnet(card: str, device="cuda") -> None:
+def phase_tcp_testnet(card: str, device="cuda") -> str:
     """Phase 9: the reference's testnet as four ``cli run`` processes
     over TCP, node 3 SIGKILLed and restarted from its WAL twice: once
     with every transaction it took in minted, once at a seeded moment
-    (module docstring)."""
+    (module docstring).  Returns a directory holding a copy of the
+    fleet's shape manifest (phase 15(d) prewarms from it)."""
     import asyncio
     import os
     import random
@@ -2791,11 +2848,16 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
         info["apps"] = {i: p.poll() for i, p in runner.client_procs.items()}
 
     async def run():
-        t0, wall = time.perf_counter(), info["t_spawn"]
-        for i in range(n):
-            await until(lambda i=i: stats_up(i), T["boot_s"],
+        t0, wall = info["t_spawn_perf"], info["t_spawn"]
+
+        async def up(i):
+            await until(lambda: stats_up(i), T["boot_s"],
                         f"node {i}'s /Stats")
+            info["boot_each"][i] = time.perf_counter() - t0
             info["down"][ports.of(i)["gossip"]].append((wall, time.time()))
+
+        info["boot_each"] = {}
+        await asyncio.gather(*(up(i) for i in range(n)))
         info["boot_s"] = time.perf_counter() - t0
         await round1()
         await round2()
@@ -2805,6 +2867,7 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
     try:
         try:
             info["t_spawn"] = time.time()
+            info["t_spawn_perf"] = time.perf_counter()
             runner.start()
             probe_proc = subprocess.Popen(
                 [sys.executable, "-m", "babble_tpu_torch.cli", "dummy",
@@ -2846,6 +2909,10 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
         minted = [by_creator.get(p.pub_key_hex, 0) for p in peers]
         olds = [lines(p) for p in befores]
         apps = [lines(p) for p in logs]
+        # the fleet's shape manifest outlives the testnet, for phase 15(d)
+        fleet_root = tempfile.mkdtemp(prefix="babble-fleet-manifest-")
+        shutil.copy(os.path.join(tmp, "jax_cache_shared",
+                                 "babble_aot_manifest.json"), fleet_root)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2912,6 +2979,21 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
           f"new app got that order from the first ({len(olds[0])} had "
           f"reached its old app); no process exited but the killed one; "
           f"failures logged 0; boot {info['boot_s']:.1f} s", flush=True)
+    print(f"[tcp] each node prewarmed at boot from one shared cache root "
+          f"(the testnet's default): spawn to /Stats "
+          f"{', '.join(f'node {i} {s:.2f} s' for i, s in sorted(info['boot_each'].items()))}"
+          f"; node {crash}'s restarts boot to /Stats "
+          f"{info['restart1_s']:.2f} s and {info['restart2_s']:.2f} s; "
+          f"{card}", flush=True)
+    for i, m in enumerate(info["final"]):
+        print(f"[tcp] node {i} /metrics after node {crash}'s last restart: "
+              + ", ".join(f"{c} {m.get(c, 'absent')}" for c in AOT_SERIES)
+              + f"; {card}", flush=True)
+    missing = [(i, c) for i, m in enumerate(info["final"])
+               for c in AOT_SERIES if c not in m]
+    if missing:
+        raise AssertionError(f"prewarmed nodes without the AOT counters on "
+                             f"/metrics: {missing}")
     print(f"[tcp] {total / span:.0f} transactions committed/s (first submit "
           f"to the last app's {total}th: {span:.1f} s; submission took "
           f"{info['t_submitted'] - info['t_start']:.1f} s; "
@@ -3005,6 +3087,7 @@ def phase_tcp_testnet(card: str, device="cuda") -> None:
               f"{worst * 1e3:.1f} ms a MiB against the proxy's wait of "
               f"1,000 ms a MiB, a margin of {1 / worst:.1f}x", flush=True)
     codec_costs(device)
+    return fleet_root
 
 
 def phase_host_tools(card: str) -> None:
@@ -3117,44 +3200,67 @@ def chaos_scenario(name: str, seed: int):
     return load_scenario(name)
 
 
-def phase_chaos_sweep(card: str, device="cuda", runs=None) -> None:
-    """Phase 10(a): the canned scenarios through the deterministic
-    in-memory runner on the card, each run held to CHAOS_EXPECT (module
-    docstring)."""
+def chaos_worker(runs: list, device: str = "cuda") -> None:
+    """Phase 10(a)'s worker process: each (name, seed) of ``runs``
+    through the deterministic runner, and as its last line one JSON
+    object: each run's report line and its differences from
+    CHAOS_EXPECT (none when equal), and the la_walk launches."""
     from babble_tpu_torch.chaos import run_scenario
+    from babble_tpu_torch.ops.pallas_ingest import la_walk
 
-    if runs is None:
-        runs = [(name, seed) for name in CHAOS_SWEEP + ["mini-disk-rot"]
-                for seed in CHAOS_SEEDS]
     # every dropped or partitioned sync is a logged warning: thousands
     # of lines a run, none of them a failure (the invariants judge)
     logging.disable(logging.WARNING)
-    failed = []
+    la_walk.launches = 0
+    out = []
+    for name, seed in runs:
+        t0 = time.perf_counter()
+        with ConsensusCalls() as calls:
+            result = run_scenario(chaos_scenario(name, seed), seed=seed,
+                                  device=device)
+        wall = time.perf_counter() - t0
+        got, want = chaos_summary(result), CHAOS_EXPECT[name][seed]
+        verdict = "== CHAOS_EXPECT" if got == want else "!= CHAOS_EXPECT"
+        out.append({
+            "line": f"[chaos] (a) {name} seed {seed}: {verdict}, fingerprint "
+                    f"{got['fingerprint'][:16]}, committed "
+                    f"{list(got['committed'].values())}, invariants "
+                    f"{'hold' if got['ok'] else 'VIOLATED'}; wall "
+                    f"{wall:.1f} s, {calls.line()}; faults "
+                    f"{got['fault_counts']}",
+            "diff": {k: repr((got[k], want[k])) for k in got
+                     if got[k] != want[k]},
+            "report": "" if got["ok"] else result.report.format(),
+        })
+    print(json.dumps({"runs": out, "la_walk": la_walk.launches}), flush=True)
+
+
+def phase_chaos_sweep(card: str, device="cuda", runs=None,
+                      workers: int = CHAOS_WORKERS) -> None:
+    """Phase 10(a): the canned scenarios through the deterministic
+    in-memory runner on the card, each run held to CHAOS_EXPECT (module
+    docstring), dealt in turn to ``workers`` processes run together."""
+    if runs is None:
+        runs = CHAOS_RUNS
     t_all = time.perf_counter()
-    try:
-        for name, seed in runs:
-            t0 = time.perf_counter()
-            with ConsensusCalls() as calls:
-                result = run_scenario(chaos_scenario(name, seed), seed=seed,
-                                      device=device)
-            wall = time.perf_counter() - t0
-            got, want = chaos_summary(result), CHAOS_EXPECT[name][seed]
-            verdict = "== CHAOS_EXPECT" if got == want else "!= CHAOS_EXPECT"
-            print(f"[chaos] (a) {name} seed {seed}: {verdict}, fingerprint "
-                  f"{got['fingerprint'][:16]}, committed "
-                  f"{list(got['committed'].values())}, invariants "
-                  f"{'hold' if got['ok'] else 'VIOLATED'}; wall {wall:.1f} "
-                  f"s, {calls.line()}; faults {got['fault_counts']}",
-                  flush=True)
-            if got != want:
-                if not got["ok"]:
-                    print(result.report.format(), flush=True)
-                failed.append((name, seed, {k: (got[k], want[k])
-                                            for k in got if got[k] != want[k]}))
-    finally:
-        logging.disable(logging.NOTSET)
-    print(f"[chaos] (a) {len(runs)} runs in {time.perf_counter() - t_all:.1f}"
-          f" s; {card}", flush=True)
+    groups = [runs[i::workers] for i in range(workers)]
+    outs = _children([f"chaos_worker({g!r}, {device!r})"
+                      for g in groups if g])
+    by_run = {}
+    for g, o in zip(groups, outs):
+        if o["la_walk"]:
+            raise AssertionError("the chaos sweep launched la_walk")
+        by_run.update(zip(g, o["runs"]))
+    failed = []
+    for run in runs:
+        r = by_run[run]
+        print(r["line"], flush=True)
+        if r["diff"]:
+            if r["report"]:
+                print(r["report"], flush=True)
+            failed.append((*run, r["diff"]))
+    print(f"[chaos] (a) {len(runs)} runs in {len(outs)} processes in "
+          f"{time.perf_counter() - t_all:.1f} s; {card}", flush=True)
     if failed:
         raise AssertionError(f"chaos runs != the JAX package's (port, JAX): "
                              f"{failed}")
@@ -3284,11 +3390,13 @@ def stream_summary(stream) -> dict:
                 evicted=stream.evicted, digest=h.hexdigest())
 
 
-def wide_replay(core_cls, key_from_scalar, cmds, **core_kw):
+def wide_replay(core_cls, key_from_scalar, cmds, prewarm=None, **core_kw):
     """Four ``Core(wide=True)`` of one package (its ``Core`` class,
     ``key_from_scalar`` and ``net.commands`` module) through
     WIDE_ENGINE's seeded sync schedule on one logical clock,
-    ``run_consensus`` after every sync.  Returns the Cores."""
+    ``run_consensus`` after every sync.  With ``prewarm`` (a cache root;
+    the port's only) each engine is prewarmed before the replay, as a
+    Node does at boot.  Returns the Cores."""
     from babble_tpu_torch.sim.replay import (
         LogicalClock, replay_scalars, sync_schedule,
     )
@@ -3304,6 +3412,11 @@ def wide_replay(core_cls, key_from_scalar, cmds, **core_kw):
              for i in range(cfg["n"])]
     for c in cores:
         c.now_ns = clock
+    if prewarm is not None:
+        from babble_tpu_torch.ops import aot
+
+        for c in cores:
+            aot.prewarm_engine(c.hg, prewarm)
     for c in cores:
         c.init()
     for i, (frm, to, payload) in enumerate(
@@ -4550,6 +4663,403 @@ def phase_reference(dev, card: str, walk_out, walk_cfg, walk_dag,
     return base3
 
 
+def _pct(xs, q: float):
+    """bench.py's percentile of a list (None when empty)."""
+    if not xs:
+        return None
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def prewarm_child_fused(cache_dir: str, device: str = "cuda",
+                        prewarm: bool = True) -> None:
+    """Phase 15(a)'s child: bench.py's ``_run_stream_child`` on the port.
+    One process boot, the cache root, ``prewarm_engine`` (limit 2; none
+    without ``prewarm``, as a node with ``--no_aot_prewarm`` boots),
+    then ``PREWARM_STREAM`` as gossip flushes through a gated fused
+    engine and one bulk flush through the throughput surface.  Prints
+    one JSON line."""
+    t_boot = time.perf_counter()
+    from babble_tpu_torch.ops import aot
+
+    aot.configure(cache_dir)
+    import torch
+
+    from babble_tpu_torch.consensus.engine import TorchHashgraph
+    from babble_tpu_torch.sim.generator import random_gossip_dag
+
+    def sync():
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+
+    S = PREWARM_STREAM
+    dag = random_gossip_dag(S["n"], S["e"], seed=S["seed"])
+    eng = TorchHashgraph(dag.participants, verify_signatures=False,
+                         kernel_class="auto", finality_gate=True,
+                         device=device)
+    t0 = time.perf_counter()
+    pre = (aot.prewarm_engine(eng, cache_dir, limit=S["limit"]) if prewarm
+           else None)
+    prewarm_s = time.perf_counter() - t0
+    at_boot = aot.compile_counts()
+
+    lat = {"latency": [], "throughput": []}
+    first = None
+    ordered = 0
+    t_stream = time.perf_counter()
+    for i, ev in enumerate(dag.events):
+        eng.insert_event(ev.clone())
+        if (i + 1) % S["every"] == 0:
+            f0 = time.perf_counter()
+            ordered += len(eng.run_consensus())
+            sync()
+            dt = time.perf_counter() - f0
+            lat[eng.last_kernel_class or "latency"].append(dt)
+            if first is None:
+                first = dict(
+                    boot_to_first_flush_s=time.perf_counter() - t_boot,
+                    first_flush_s=dt,
+                    first_flush_traces=(aot.compile_counts()["traces"]
+                                        - at_boot["traces"]))
+    stream_s = time.perf_counter() - t_stream
+    traces_after_boot = aot.compile_counts()["traces"] - at_boot["traces"]
+
+    bulk = TorchHashgraph(dag.participants, verify_signatures=False,
+                          kernel_class="throughput", device=device)
+    for ev in dag.events:
+        bulk.insert_event(ev.clone())
+    f0 = time.perf_counter()
+    bulk_ordered = len(bulk.run_consensus())
+    sync()
+    lat["throughput"].append(time.perf_counter() - f0)
+    print(json.dumps({
+        **first,
+        "prewarm_s": prewarm_s,
+        "prewarm": pre,
+        "warmed": sorted(list(k) for k in eng._aot),
+        "flush_latency_s": {
+            k: {"count": len(v), "p50": _pct(v, 0.5), "p95": _pct(v, 0.95),
+                "max": _pct(v, 1.0)} for k, v in lat.items()},
+        "stream_events_per_sec": len(dag.events) / stream_s,
+        "ordered_incremental": ordered,
+        "ordered_bulk": bulk_ordered,
+        "commit": {"ordered": eng.commit_length,
+                   "digest": eng.commit_digest},
+        "traces_after_boot": traces_after_boot,
+        "compile_counters": aot.compile_counts(),
+    }), flush=True)
+
+
+def prewarm_child_fork(cache_dir: str, warm: bool,
+                       device: str = "cuda") -> None:
+    """Phase 15(b)'s child: ``tests/test_torch_aot.py``'s fork child on
+    the card, cold (no prewarm) or warm.  Prints one JSON line."""
+    t_boot = time.perf_counter()
+    from babble_tpu_torch.ops import aot
+
+    aot.configure(cache_dir)
+    import torch
+
+    from babble_tpu_torch.consensus.fork_engine import ForkHashgraph
+    from babble_tpu_torch.ops.forks import ss_counts
+    from babble_tpu_torch.sim.generator import random_gossip_dag
+
+    dag = random_gossip_dag(4, 56, seed=21)
+    eng = ForkHashgraph(dag.participants, k=2, verify_signatures=False,
+                        device=device)
+    eng._aot_dir = cache_dir
+    t0 = time.perf_counter()
+    res = aot.prewarm_engine(eng, cache_dir) if warm else None
+    prewarm_s = time.perf_counter() - t0
+    boot, caps = aot.compile_counts(), eng._caps
+    boot_launches = ss_counts.launches
+    runs = []
+    for i, ev in enumerate(dag.events):
+        eng.insert_event(ev.clone())
+        if (i + 1) % 6 == 0:
+            f0 = time.perf_counter()
+            eng.run_consensus()
+            if device.startswith("cuda"):
+                torch.cuda.synchronize()
+            runs.append(time.perf_counter() - f0)
+            if len(runs) == 1:
+                first_s = time.perf_counter() - t_boot
+    eng.run_consensus()
+    print(json.dumps({
+        "boot_to_first_run_s": first_s,
+        "first_run_s": runs[0],
+        "run_p50_s": _pct(runs, 0.5),
+        "run_max_s": _pct(runs, 1.0),
+        "prewarm_s": prewarm_s,
+        "prewarm": res,
+        "caps_at_boot": list(caps), "caps": list(eng._caps),
+        "cold_dispatches": aot.compile_counts()["traces"] - boot["traces"],
+        "fork_ss_launches": {"boot": boot_launches,
+                             "stream": ss_counts.launches - boot_launches},
+        "consensus": len(eng.consensus),
+        "digest": eng.commit_digest,
+        "compile_counters": aot.compile_counts(),
+    }), flush=True)
+
+
+def prewarm_child_manifest(cache_dir: str, device: str = "cuda") -> None:
+    """Phase 15(d)'s child: a node's boot prewarm from a fleet's shared
+    manifest, in a fresh process.  For each DagConfig the manifest's
+    fused keys carry, a gated engine of that config warms its first key,
+    then the rest; prints one JSON line with both walls."""
+    t_boot = time.perf_counter()
+    from babble_tpu_torch.ops import aot
+
+    aot.configure(cache_dir)
+    from babble_tpu_torch.consensus.engine import TorchHashgraph
+    from babble_tpu_torch.ops.state import DagConfig
+
+    cfgs = []
+    for e in aot.load_manifest(cache_dir):
+        if "key" in e and e["cfg"] not in cfgs:
+            cfgs.append(e["cfg"])
+    out = []
+    for raw in cfgs:
+        cfg = DagConfig(*[tuple(v) if isinstance(v, list) else v
+                          for v in raw])
+        eng = TorchHashgraph(
+            {f"fleet-{i}": i for i in range(cfg.n)}, verify_signatures=False,
+            e_cap=cfg.e_cap, s_cap=cfg.s_cap, r_cap=cfg.r_cap, ts32=cfg.ts32,
+            packed_votes=cfg.packed, finality_gate=True, device=device)
+        if tuple(eng.cfg) != tuple(cfg):
+            raise AssertionError(f"cannot rebuild the manifest's config "
+                                 f"{raw}: got {tuple(eng.cfg)}")
+        t0 = time.perf_counter()
+        first = aot.prewarm_engine(eng, cache_dir, limit=1)
+        t1 = time.perf_counter()
+        rest = aot.prewarm_engine(eng, cache_dir)
+        t2 = time.perf_counter()
+        out.append({"cfg": raw, "first_key_s": t1 - t0, "first": first,
+                    "rest_s": t2 - t1, "rest": rest,
+                    "since_boot_s": t2 - t_boot})
+    print(json.dumps({"configs": out}), flush=True)
+
+
+def _children(calls: list, timeout: float = 600) -> list:
+    """Run each ``chip_smoke.<call>`` in a fresh process from this
+    checkout, all at once; the last line of each one's output, parsed,
+    with its process wall."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH", "")) if p)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as c; c.{call}"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for call in calls]
+    outs, failed = [], []
+    try:
+        for call, proc in zip(calls, procs):
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            stdout, stderr = proc.communicate(timeout=left)
+            if proc.returncode != 0:
+                failed.append(f"child {call} exited {proc.returncode}: "
+                              f"{stderr[-3000:]}")
+                continue
+            out = json.loads(stdout.strip().splitlines()[-1])
+            out["process_wall_s"] = time.perf_counter() - t0
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return outs
+
+
+def phase_prewarm(card: str, device: str = "cuda",
+                  fleet_root: str = "") -> None:
+    """Phase 15: the AOT prewarm, cold and warm (module docstring);
+    ``fleet_root``: phase 9's shared cache root, for (d)."""
+    import tempfile
+
+    import torch
+
+    from babble_tpu_torch.consensus.fork_engine import ForkHashgraph
+    from babble_tpu_torch.consensus.wide_engine import WideHashgraph
+    from babble_tpu_torch.crypto.keys import key_from_scalar
+    from babble_tpu_torch.net import commands
+    from babble_tpu_torch.node.core import Core
+    from babble_tpu_torch.ops import aot
+    from babble_tpu_torch.ops.forks import ss_counts
+    from babble_tpu_torch.ops.ss import ss_counts_acc
+    from babble_tpu_torch.store.checkpoint import save_checkpoint
+
+    on_card = device.startswith("cuda")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    # (a) the fused engine: bench.py's stream child, cold then warm
+    root = tempfile.mkdtemp(prefix="babble-prewarm-fused-")
+    a = {tag: _children([f"prewarm_child_fused({root!r}, {device!r})"])[0]
+         for tag in ("cold", "warm")}
+    # and a node that boots with --no_aot_prewarm, on a root of its own
+    a["off"] = _children([
+        f"prewarm_child_fused({tempfile.mkdtemp()!r}, {device!r}, False)"])[0]
+    for tag, c in a.items():
+        lat = c["flush_latency_s"]
+        print(f"[prewarm] (a) {tag}: boot to first flush "
+              f"{c['boot_to_first_flush_s']:.3f} s (process wall "
+              f"{c['process_wall_s']:.1f} s), prewarm {c['prewarm_s']:.3f} s "
+              f"{c['prewarm']}, first flush {c['first_flush_s'] * 1e3:.1f} "
+              f"ms ({c['first_flush_traces']} unwarmed dispatches); flush "
+              + "; ".join(
+                  f"{k} n={v['count']} p50 {v['p50'] * 1e3:.1f} / p95 "
+                  f"{v['p95'] * 1e3:.1f} / max {v['max'] * 1e3:.1f} ms"
+                  for k, v in lat.items() if v["count"])
+              + f"; {c['stream_events_per_sec']:.1f} events/s; ordered "
+              f"{c['commit']['ordered']} (bulk {c['ordered_bulk']}); "
+              f"unwarmed dispatches after boot {c['traces_after_boot']}; "
+              f"counters {c['compile_counters']}; {card}", flush=True)
+    cold, warm = a["cold"], a["warm"]
+    if not (cold["commit"] == warm["commit"] == a["off"]["commit"]
+            == PREWARM_EXPECT):
+        raise AssertionError(f"prewarm stream commits: cold "
+                             f"{cold['commit']}, warm {warm['commit']}, "
+                             f"off {a['off']['commit']}, want "
+                             f"{PREWARM_EXPECT}")
+    if warm["first_flush_traces"] != 0 or not warm["prewarm"]["compiled"] \
+            or warm["prewarm"]["from_manifest"] != PREWARM_STREAM["limit"]:
+        raise AssertionError(f"the warm child's first flush hit an unwarmed "
+                             f"shape or it warmed nothing from the "
+                             f"manifest: {warm}")
+    print(f"[prewarm] (a) cold and warm == PREWARM_EXPECT; warm first flush "
+          f"{warm['first_flush_s'] * 1e3:.1f} ms against the warm p50 "
+          f"{warm['flush_latency_s']['latency']['p50'] * 1e3:.1f} ms (cold "
+          f"{cold['first_flush_s'] * 1e3:.1f} ms, no prewarm "
+          f"{a['off']['first_flush_s'] * 1e3:.1f} ms); {card}", flush=True)
+
+    # (b) the fork engine: the test's child DAG cold then warm, then a
+    # prewarm at config 4's width
+    root = tempfile.mkdtemp(prefix="babble-prewarm-fork-")
+    b = {tag: _children([f"prewarm_child_fork({root!r}, "
+                         f"{tag == 'warm'}, {device!r})"])[0]
+         for tag in ("cold", "warm")}
+    for tag, c in b.items():
+        print(f"[prewarm] (b) fork {tag}: boot to first run "
+              f"{c['boot_to_first_run_s']:.3f} s (process wall "
+              f"{c['process_wall_s']:.1f} s), prewarm {c['prewarm_s']:.3f} s "
+              f"{c['prewarm']}, first run {c['first_run_s'] * 1e3:.1f} ms, "
+              f"run p50 {c['run_p50_s'] * 1e3:.1f} / max "
+              f"{c['run_max_s'] * 1e3:.1f} ms; caps at boot "
+              f"{c['caps_at_boot']}, at the end {c['caps']}; cold shapes "
+              f"dispatched after boot {c['cold_dispatches']}; fork_ss "
+              f"launches {c['fork_ss_launches']}; committed "
+              f"{c['consensus']}; counters {c['compile_counters']}; {card}",
+              flush=True)
+    cold, warm = b["cold"], b["warm"]
+    if not (warm["consensus"] == cold["consensus"] > 0
+            and warm["digest"] == cold["digest"]
+            and warm["caps"] == warm["caps_at_boot"] == cold["caps"]
+            and warm["cold_dispatches"] == 0 and cold["cold_dispatches"] > 0
+            and warm["prewarm"]["compiled"] > 0):
+        raise AssertionError(f"fork prewarm: cold {cold}, warm {warm}")
+    if on_card and not (cold["fork_ss_launches"]["boot"] == 0
+                        and warm["fork_ss_launches"]["boot"] > 0):
+        raise AssertionError(f"the warm boot launched no fork_ss, or the "
+                             f"cold one did: cold {cold}, warm {warm}")
+
+    F = PREWARM_FORK4
+    root = tempfile.mkdtemp(prefix="babble-prewarm-fork4-")
+    aot.record_fork_caps(root, F["n"], F["k"], F["caps"],
+                         sched=F["sched"])
+    eng = ForkHashgraph({f"fork4-{i:04d}": i for i in range(F["n"])},
+                        k=F["k"], device=device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ss_counts.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    res = aot.prewarm_engine(eng, root)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    print(f"[prewarm] (b) ForkHashgraph(n={F['n']}, k={F['k']}) from "
+          f"phase 11(b)'s caps {F['caps']} and schedule {F['sched']}: "
+          f"{res}; wall {wall:.2f} s; fork_ss launches "
+          f"{ss_counts.launches}; peak {peak / 2**30:.2f} GiB; caps "
+          f"{eng._caps}; {card}", flush=True)
+    if eng._caps != F["caps"] or res["compiled"] != 1 \
+            or (on_card and ss_counts.launches == 0):
+        raise AssertionError(f"config-4 prewarm: {res}, caps "
+                             f"{eng._caps}, fork_ss launches "
+                             f"{ss_counts.launches}")
+    del eng
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) the wide engine: phase 12(d)'s Cores prewarmed, then a
+    # prewarm at config 3's width
+    root = tempfile.mkdtemp(prefix="babble-prewarm-wide-")
+    ss_counts_acc.launches = 0
+    t0 = time.perf_counter()
+    cores = wide_replay(Core, key_from_scalar, commands, prewarm=root,
+                        device=device)
+    path = os.path.join(tempfile.mkdtemp(), "wide")
+    save_checkpoint(cores[0].hg, path)
+    got = wide_engine_summary(cores, path)
+    print(f"[prewarm] (c) {WIDE_ENGINE['n']} Core(wide=True), each "
+          f"engine prewarmed, x {WIDE_ENGINE['syncs']} syncs: "
+          f"{'==' if got == WIDE_ENGINE_EXPECT else '!='} "
+          f"WIDE_ENGINE_EXPECT (commits {got['commit_length']}); "
+          f"manifest {aot.load_manifest(root)}; ss_count launches "
+          f"{ss_counts_acc.launches}; {time.perf_counter() - t0:.1f} s; "
+          f"{card}", flush=True)
+    if got != WIDE_ENGINE_EXPECT:
+        raise AssertionError(f"the prewarmed wide Cores != the JAX "
+                             f"package's: {got} vs {WIDE_ENGINE_EXPECT}")
+    del cores
+    W = PREWARM_WIDE3
+    weng = WideHashgraph(
+        {f"wide3-{i:04d}": i for i in range(W["n"])},
+        verify_signatures=False, e_cap=W["e_cap"], s_cap=W["s_cap"],
+        r_cap=W["r_cap"], device=device)
+    ss_counts_acc.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    res = aot.prewarm_engine(weng, tempfile.mkdtemp(
+        prefix="babble-prewarm-wide3-"))
+    wall = time.perf_counter() - t0
+    print(f"[prewarm] (c) WideHashgraph(n={W['n']}, e_cap={W['e_cap']}, "
+          f"s_cap={W['s_cap']}, r_cap={W['r_cap']}, C={weng.stream.C}): "
+          f"{res}; wall {wall:.2f} s; ss_count launches "
+          f"{ss_counts_acc.launches}; {card}", flush=True)
+    if on_card and ss_counts_acc.launches == 0:
+        raise AssertionError("the wide prewarm launched no ss_count")
+    del weng
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) phase 9's fleet: a node's boot prewarm from the fleet's shared
+    # manifest, its first key and the rest apart
+    if fleet_root:
+        d = _children([f"prewarm_child_manifest({fleet_root!r}, "
+                       f"{device!r})"])[0]
+        for c in d["configs"]:
+            print(f"[prewarm] (d) phase 9's manifest, config {c['cfg']}: "
+                  f"first key {c['first_key_s']:.3f} s {c['first']}, the "
+                  f"other {c['rest']['compiled']} keys {c['rest_s']:.3f} s "
+                  f"({c['rest_s'] / max(c['rest']['compiled'], 1) * 1e3:.1f} "
+                  f"ms a key); {c['since_boot_s']:.1f} s from the child's "
+                  f"start (process wall {d['process_wall_s']:.1f} s); {card}",
+                  flush=True)
+        if not d["configs"]:
+            raise AssertionError(f"phase 9's fleet recorded no fused key in "
+                                 f"{fleet_root}")
+    print(f"[prewarm] phase 15: {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4609,7 +5119,7 @@ def main() -> int:
           f"(b) {time.perf_counter() - t1:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    phase_tcp_testnet(card)
+    fleet_root = phase_tcp_testnet(card)
     print(f"[tcp] phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_host_tools(card)
@@ -4628,6 +5138,7 @@ def main() -> int:
 
     byz_row = phase_byzantine(dev, card)
     wide_row = phase_wide(dev, card, base3)
+    phase_prewarm(card, fleet_root=fleet_root)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [row, byz_row, wide_row]}), flush=True)

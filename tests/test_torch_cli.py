@@ -3,8 +3,9 @@ CPU.
 
 - ``run``'s parser has every flag of JAX ``run`` with the same option
   strings, destination, default, type, choices and action, plus
-  ``--device`` (default ``cuda``) and without ``--jax_cache`` (the port
-  has no XLA cache);
+  ``--device`` (default ``cuda``); ``--jax_cache`` (the port's cache
+  root for kernel libraries and the AOT manifest) and
+  ``--no_aot_prewarm`` reach the node as the JAX cli sets them;
 - ``keygen`` writes a PEM key file that JAX ``PemKeyFile`` reads to the
   same identity, and prints the JAX package's PEM;
 - ``sim --device cpu`` prints JAX ``cli sim``'s ``ordered``,
@@ -76,7 +77,7 @@ def _flags(parser):
 def test_run_parser_matches_jax_run(monkeypatch):
     jflags = _flags(_jax_run_parser(monkeypatch))
     pflags = _flags(_subparser(pcli.build_parser(), "run"))
-    assert set(jflags) - set(pflags) == {"jax_cache"}
+    assert set(jflags) - set(pflags) == set()
     assert set(pflags) - set(jflags) == {"device"}
     for dest in jflags.keys() & pflags.keys():
         assert pflags[dest] == jflags[dest], dest
@@ -250,6 +251,54 @@ def test_byzantine_run_flags_reach_the_node(tmp_path, monkeypatch, flags,
         with pytest.raises(SystemExit) as jerr:
             jcli._parse_fork_caps(bad)
         assert str(perr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("flags,root,prewarm", [
+    ([], "datadir", True),
+    (["--no_aot_prewarm"], "datadir", False),
+    (["--jax_cache", "off"], None, False),
+    (["--jax_cache", "{tmp}/shared"], "{tmp}/shared", True),
+    (["--jax_cache", "off", "--no_aot_prewarm"], None, False),
+])
+def test_cache_root_and_prewarm_flags_reach_the_node(tmp_path, monkeypatch,
+                                                     flags, root, prewarm):
+    """``--jax_cache`` names the cache root (JAX's default under the
+    datadir, ``off`` for none) and the node's ``aot_dir`` is it, unless
+    ``--no_aot_prewarm``: the node's engine then records its shapes
+    there (a CPU node warms none at boot).  The kernel libraries stay
+    in the package's build directory either way."""
+    from babble_tpu_torch import cuda_build, native
+    from babble_tpu_torch.node import node as pnode
+
+    tn.build_conf(str(tmp_path), 2)
+    flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
+    datadir = str(tmp_path / "node0")
+    want_root = {None: None, "datadir": os.path.join(datadir, "jax_cache")
+                 }.get(root, (root or "").replace("{tmp}", str(tmp_path)))
+    before = (cuda_build.BUILD_DIR, native.BUILD_DIR)
+    seen = {}
+
+    class Spy(pnode.Node):
+        def __init__(self, conf, *a, **k):
+            super().__init__(conf, *a, **k)
+            seen.update(conf=conf, hg=self.core.hg)
+            raise _Wrapped
+
+    monkeypatch.setattr(pnode, "Node", Spy)
+    with pytest.raises(_Wrapped):
+        pcli.main(["run", "--datadir", datadir, "--no_client",
+                   "--node_addr", "127.0.0.1:0", "--device", "cpu"] + flags)
+    conf, hg = seen["conf"], seen["hg"]
+    assert conf.aot_dir == (want_root if prewarm else "")
+    assert (cuda_build.BUILD_DIR, native.BUILD_DIR) == before
+    assert hg._aot_dir == (want_root if prewarm else None)
+    assert hg._aot == set()
+    jargs = _jax_run_parser(monkeypatch).parse_args(
+        ["--datadir", datadir] + flags)
+    pargs = pcli.build_parser().parse_args(["run", "--datadir", datadir]
+                                           + flags)
+    assert (jargs.jax_cache, jargs.no_aot_prewarm) == \
+        (pargs.jax_cache, pargs.no_aot_prewarm)
 
 
 def test_run_refuses_a_fork_k_the_card_kernel_lacks():

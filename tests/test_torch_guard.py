@@ -7,9 +7,10 @@ cli's ``keygen`` and ``sim --device cpu`` as ``python -m`` runs them, a
 round trip between two of its TCP transports, a chaos scenario through
 its runner (the disk-rot mini: crash, checkpoint and WAL rot,
 recovery), its C++ generator and baseline (built by its own loader),
-its straight-line oracle, and its host tools (``lint`` over the whole
-port, ``fleet conf`` and a ``testnet health`` sweep), with all four
-blocked."""
+its straight-line oracle, its AOT prewarm (a fused stream's manifest
+prewarming a twin, and the fork and wide warm-ups), and its host tools
+(``lint`` over the whole port, ``fleet conf`` and a ``testnet health``
+sweep), with all four blocked."""
 
 import ast
 import os
@@ -258,6 +259,52 @@ for ev in gen.events:
     oracle.insert_event(ev.clone())
 oracle.run_consensus()
 assert len(oracle.consensus_events()) > 0
+# the AOT prewarm: a fused stream records its shape manifest, and twins
+# prewarmed from it (fused, fork, wide) commit what the cold runs commit
+from babble_tpu_torch.ops import aot
+root = tempfile.mkdtemp()
+aot.configure(root)
+
+
+def feed(engine, every=8):
+    for i, ev in enumerate(gen.events):
+        engine.insert_event(ev.clone())
+        if i % every == every - 1:
+            engine.run_consensus()
+    engine.run_consensus()
+    return engine
+
+
+def fused():
+    return bt.TorchHashgraph(gen.participants, verify_signatures=False,
+                             device="cpu", finality_gate=True)
+
+
+def forked():
+    return bt.ForkHashgraph(gen.participants, device="cpu")
+
+
+cold, cold_fork = fused(), forked()
+cold._aot_dir = cold_fork._aot_dir = root
+feed(cold)
+feed(cold_fork, every=24)
+twin, twin_fork = fused(), forked()
+n_keys = len([e for e in aot.load_manifest(root) if "key" in e])
+assert aot.prewarm_engine(twin, root) == {"compiled": n_keys,
+                                         "from_manifest": n_keys}
+assert aot.prewarm_engine(twin_fork, root)["compiled"] > 0
+assert twin_fork._caps == cold_fork._caps
+assert feed(twin).commit_digest == cold.commit_digest
+assert feed(twin_fork, every=24).consensus == cold_fork.consensus
+wide_twin = bt.WideHashgraph(gen.participants, verify_signatures=False,
+                             device="cpu", e_cap=96, s_cap=32, r_cap=16,
+                             n_blocks=2, seq_window=6, compact_min=16)
+assert aot.prewarm_engine(wide_twin, root)["compiled"] == 1
+for lo in range(0, 120, 24):
+    for ev in gen.events[lo:lo + 24]:
+        wide_twin.insert_event(ev.clone())
+    wide_twin.run_consensus()
+assert wide_twin.commit_digest == weng.commit_digest
 blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
            and sys.modules[m] is not None]
 # the host tools: babble-lint over the whole port, a fleet's conf and

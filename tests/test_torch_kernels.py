@@ -393,3 +393,70 @@ def test_fork_ss_rejects_what_it_does_not_take():
         ss_counts(la9, det9, hw9, 9)
     assert ss_counts.launches == before
     assert ss_counts(la9.cpu(), det9.cpu(), hw9.cpu(), 9).shape == (1, 4, 5)
+
+
+def _tally_site(name, dev):
+    """One of the five tallies that multiply 0/1 operands in f32 (the
+    diagonal and block fame, the flush's f32 votes, the wide fame and
+    ss's one-hot count), as a call on ``dev``."""
+    from babble_tpu_torch import live_stream, stream_consensus
+    from babble_tpu_torch.ops import fame, ingest, ss
+
+    if name in ("fame_diagonal", "fame_block"):
+        dag = random_gossip_arrays(16, 2048, seed=3)
+        cfg = DagConfig(n=16, e_cap=2048, s_cap=max(64, dag.max_chain + 1),
+                        r_cap=64)
+        st = ingest.ingest_impl(cfg, init_state(cfg, device=dev), "full",
+                                batch_from_arrays(dag, device=dev))
+        if name == "fame_diagonal":
+            return lambda: fame.decide_fame_impl(cfg, st, gate=True)
+        return lambda: fame.decide_fame_block_impl(cfg, st, True, True)
+    if name == "flush_f32_votes":
+        dag = random_gossip_arrays(8, 1024, seed=17)
+        cfg = DagConfig(n=8, e_cap=1024, s_cap=max(64, dag.max_chain + 1),
+                        r_cap=64)
+        return lambda: live_stream(cfg, dag, 16, gate=True, device=dev)[0]
+    if name == "wide_fame_tally":
+        dag = random_gossip_arrays(16, 3200, seed=3)
+        cfg = DagConfig(n=16, e_cap=2048, s_cap=64, r_cap=16, coord8=True)
+        return lambda: stream_consensus(
+            cfg, dag, batch_events=200, n_blocks=4, seq_window=8,
+            compact_min=32, device=dev).state
+    gen = torch.Generator().manual_seed(5)
+    la = torch.randint(-1, 400, (256, 4096), generator=gen,
+                       dtype=torch.int32)
+    fd = torch.randint(0, 400, (192, 4096), generator=gen, dtype=torch.int32)
+    fd[fd > 380] = torch.iinfo(torch.int32).max
+    la, fd = la.to(dev), fd.to(dev)
+    return lambda: (ss.ss_counts_onehot(la, fd, 399, k_chunk_elems=1 << 20),
+                    ss.ss_counts_compare(la, fd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", ["fame_diagonal", "fame_block",
+                                  "flush_f32_votes", "wide_fame_tally",
+                                  "ss_onehot"])
+def test_tally_sites_exact_under_tf32_on_card(site):
+    """The tallies' operands are 0/1 and their sums stay below 2^24, so
+    TF32 matmuls on the card give what full f32 gives; no site reads or
+    sets the process's flag."""
+    _need_card()
+    run = _tally_site(site, "cuda")
+    flag = torch.backends.cuda.matmul
+    before = flag.allow_tf32
+    try:
+        flag.allow_tf32 = True
+        tf32 = run()
+        assert flag.allow_tf32 is True
+        flag.allow_tf32 = False
+        f32 = run()
+        assert flag.allow_tf32 is False
+    finally:
+        flag.allow_tf32 = before
+    tf32 = [tf32] if isinstance(tf32, torch.Tensor) else list(tf32)
+    f32 = [f32] if isinstance(f32, torch.Tensor) else list(f32)
+    assert len(tf32) == len(f32)
+    assert all(a is b is None or torch.equal(a, b)
+               for a, b in zip(tf32, f32))
+    if site == "ss_onehot":
+        assert torch.equal(tf32[0], tf32[1])

@@ -12,8 +12,8 @@ and the port's own lint gate, held to the JAX analyzer on the CPU.
   loosened;
 - the copy's sources equal JAX's, docstrings and comments aside, once
   ``babble_tpu`` reads ``babble_tpu_torch``;
-- the port's format manifest is JAX's with the package renamed, less
-  the surface of ``ops/aot.py``, which the port does not have;
+- the port's format manifest is JAX's with the package renamed, every
+  surface included (``ops/aot.py``'s since the port has the module);
 - ``lint --json`` gives the same output through both clis, and the
   port's runs without torch;
 - the codec's two allocations the analyzer once flagged are bounded: a
@@ -162,11 +162,10 @@ def test_port_manifest_is_jax_manifest_renamed():
     assert port["version"] == jax["version"] == 1
     renamed = {k.replace("babble_tpu.", "babble_tpu_torch."): v
                for k, v in jax["surfaces"].items()}
-    missing = set(renamed) - set(port["surfaces"])
-    assert missing == {"manifest:babble_tpu_torch.ops.aot:"
-                       "ENGINE_CACHE_VERSION"}
-    assert set(port["surfaces"]) <= set(renamed)
-    assert len(port["surfaces"]) == 21
+    assert set(port["surfaces"]) == set(renamed)
+    assert "manifest:babble_tpu_torch.ops.aot:ENGINE_CACHE_VERSION" in \
+        port["surfaces"]
+    assert len(port["surfaces"]) == 22
     for name, entry in port["surfaces"].items():
         want = dict(renamed[name])
         assert want.pop("path") == "babble_tpu/" + entry["path"]

@@ -596,8 +596,9 @@ def test_serve_timeouts_count_only_handler_timeouts():
 
 def test_the_testnet_log_check_reads_the_transports_texts():
     """``chip_smoke.py``'s phase 9 log check, fed the texts the port's
-    transport really gives: a refused dial or an end of stream counts as
-    unreachable only for a peer inside one of its down spans; a protocol
+    transport really gives: a refused dial, an end of stream or a write
+    that finds its connection lost counts as unreachable only for a peer
+    inside one of its down spans; a protocol
     fault (an oversized frame) and any such text outside the spans fail;
     an empty text counts as the peer's own timeout only up to the
     handler timeouts that peer counted."""
@@ -638,13 +639,24 @@ def test_the_testnet_log_check_reads_the_transports_texts():
         bad_addr = "127.0.0.1:%d" % bad.sockets[0].getsockname()[1]
         faults = await asyncio.gather(pull(bad_addr), pull(bad_addr))
         bad.close()
-        await client.close()
-        return server.local_addr(), eof, closed, refused, bad_addr, faults
 
-    down, eof, closed, refused, bad_addr, faults = asyncio.run(
-        asyncio.wait_for(texts(), 30))
+        # a pull whose write finds its pooled connection already lost,
+        # before the connection's reader has seen it go
+        held = await asyncio.start_server(lambda r, w: None, "127.0.0.1", 0)
+        lost_addr = "127.0.0.1:%d" % held.sockets[0].getsockname()[1]
+        conn = await client._get_conn(lost_addr)
+        conn.writer.transport.abort()
+        lost = await pull(lost_addr)
+        held.close()
+        await client.close()
+        return (server.local_addr(), eof, closed, refused, bad_addr, faults,
+                lost_addr, lost)
+
+    (down, eof, closed, refused, bad_addr, faults, lost_addr,
+     lost) = asyncio.run(asyncio.wait_for(texts(), 30))
     assert eof.startswith(f"sync to {down} failed: ")
     assert refused.startswith(f"sync to {closed} failed: ")
+    assert lost == f"sync to {lost_addr} failed: Connection lost"
     assert any("oversized response frame" in f for f in faults), faults
 
     t0 = time.time()
@@ -656,26 +668,29 @@ def test_the_testnet_log_check_reads_the_transports_texts():
         return (f"{stamp(at)} WARNING babble_tpu_torch gossip to {target} "
                 f"failed: {text}")
 
-    spans = {down: [(t0, t0 + 10)], closed: [(t0, t0 + 10)]}
+    spans = {down: [(t0, t0 + 10)], closed: [(t0, t0 + 10)],
+             lost_addr: [(t0, t0 + 10)]}
     ok = [line(t0 + 1, down, eof), line(t0 + 2, closed, refused),
+          line(t0 + 2, lost_addr, lost),
           line(t0 + 3, "127.0.0.1:1", ""), line(t0 + 3, "127.0.0.1:1", ""),
           line(t0 + 4, down, f"rpc to {down} timed out after 0.2s")]
     check = chip_smoke.NodeLogCheck(spans)
     check.read(0, "\n".join(ok))
     check.check_peer_timeouts({"127.0.0.1:1": 2})
     assert check.failures == []
-    assert check.kinds == {"pull unreachable": 2, "pull timeout (peer)": 2,
+    assert check.kinds == {"pull unreachable": 3, "pull timeout (peer)": 2,
                            "pull timeout": 1}
     assert check.gone == {(down, "end of stream"): 1,
-                          (closed, "refused"): 1}
+                          (closed, "refused"): 1, (lost_addr, "reset"): 1}
 
     bad = [line(t0 + 60, down, eof),                 # after the span
            line(t0 - 5, closed, refused),            # before it
+           line(t0 + 20, lost_addr, lost),           # after its span
            line(t0 + 1, "127.0.0.1:2", refused.replace(closed,
                                                        "127.0.0.1:2")),
            *(line(t0 + 1, bad_addr, f) for f in faults)]
     spans[bad_addr] = [(t0, t0 + 10)]
     check = chip_smoke.NodeLogCheck(spans)
-    check.read(0, "\n".join(bad + ok[2:4]))
+    check.read(0, "\n".join(bad + ok[3:5]))
     check.check_peer_timeouts({"127.0.0.1:1": 1})
     assert len(check.failures) == len(bad) + 1, check.failures

@@ -38,7 +38,6 @@ from babble_tpu_torch.crypto import keys as pkeys
 from babble_tpu_torch.net import InmemNetwork, Peer
 from babble_tpu_torch.net.transport import TransportError
 from babble_tpu_torch.node import Config, Node
-from babble_tpu_torch.node.node import NOT_PORTED_AOT
 from babble_tpu_torch.node.peer_selector import RandomPeerSelector
 from babble_tpu_torch.proxy import InmemAppProxy
 from babble_tpu_torch.sim.replay import replay_scalars
@@ -282,11 +281,19 @@ def test_peer_choice_and_pacing_are_seeded_as_in_jax():
     asyncio.run(go())
 
 
-def test_port_fleet_with_wal_restart_and_unported_options(tmp_path):
+def test_port_fleet_with_wal_restart_and_unported_options(tmp_path,
+                                                           monkeypatch):
     """An all-port fleet on the port's own in-memory network: a node
     shut down mid-run restarts from its WAL directory with a new proxy,
-    resumes at its published head and keeps committing; the unported
-    options refuse."""
+    resumes at its published head and keeps committing.  The option
+    that refused here until the port had it, ``Config.aot_dir``, now
+    boots a node that shows the four build and dispatch counters on
+    ``/metrics``.  On the CPU it records its shapes and warms none; the
+    card's boot branch, driven here by ``aot.warms_at_boot``, warms a
+    fused node's default keys and pre-sizes a fork node to the caps its
+    cache root's manifest recorded, and logs the prewarm."""
+    from babble_tpu_torch import cuda_build
+    from babble_tpu_torch.ops import aot
 
     async def go():
         net = InmemNetwork()
@@ -339,12 +346,56 @@ def test_port_fleet_with_wal_restart_and_unported_options(tmp_path):
         health = nodes[0].healthz()
         assert health["commit_length"] > 0 and not health["reasons"]
 
-        c = Config.test_config(device=CPU)
-        c.aot_dir = str(tmp_path / "aot")
-        with pytest.raises(NotImplementedError) as err:
-            Node(c, keys[0], peers, net.transport("inmem://8"),
-                 InmemAppProxy())
-        assert str(err.value) == NOT_PORTED_AOT
+        aot_dir = str(tmp_path / "aot")
+        build_dir = cuda_build.BUILD_DIR
+        caps = (64, 16, 8)
+        aot.record_fork_caps(aot_dir, n=3, k=Config().fork_k, caps=caps,
+                             sched=(2, 4))
+        logged = []
+        log = logging.getLogger("test_torch_node.aot")
+        log.setLevel(logging.INFO)
+        handler = logging.Handler()
+        handler.emit = lambda r: logged.append(r.getMessage())
+        log.addHandler(handler)
+        try:
+            for i, (byzantine, card) in enumerate(
+                    ((False, False), (True, False), (False, True),
+                     (True, True)), start=8):
+                monkeypatch.setattr(aot, "warms_at_boot", lambda d, on=card: on)
+                c = Config.test_config(device=CPU)
+                c.aot_dir, c.byzantine, c.logger = aot_dir, byzantine, log
+                aot_node = Node(c, keys[0], peers,
+                                net.transport(f"inmem://{i}"),
+                                InmemAppProxy())
+                try:
+                    hg = aot_node.core.hg
+                    assert hg._aot_dir == aot_dir
+                    if not card:
+                        assert not logged
+                        assert (hg._caps == (0, 0, 0) if byzantine
+                                else hg._aot == set())
+                    elif byzantine:
+                        assert hg._caps == caps
+                        assert logged[-1] == ("AOT prewarm: 1 programs "
+                                              "compiled (1 from manifest)")
+                    else:
+                        assert sorted(k[3:] for k in hg._aot) == sorted(
+                            (kpad,) + tb for kpad, tb in aot._DEFAULT_SHAPES)
+                        assert logged[-1] == ("AOT prewarm: 2 programs "
+                                              "compiled (0 from manifest)")
+                    # the libraries stay in the package's hash-named build
+                    assert cuda_build.BUILD_DIR == build_dir
+                    metrics = aot_node.registry.exposition()
+                    for series in ("babble_compile_cache_hits_total",
+                                   "babble_compile_cache_misses_total",
+                                   "babble_xla_compiles_total",
+                                   "babble_jit_traces_total"):
+                        assert f"\n{series} " in metrics, series
+                    assert aot_node.get_stats()["consensus_events"] == "0"
+                finally:
+                    await aot_node.shutdown()
+        finally:
+            log.removeHandler(handler)
 
     asyncio.run(go())
 
