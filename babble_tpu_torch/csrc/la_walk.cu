@@ -75,6 +75,12 @@
 // of the cooperative launch and the scratch; the direct strided store is
 // the simpler form to return to if the cooperative launch gets in the way.
 // la_walk_phases (the prof buffer below) measures that epilogue.
+//
+// Column range.  The launch fills the columns [c0, c0 + w) of the n
+// columns (a rank's shard of the participant axis): block b owns global
+// column c0 + b, the own-lane test compares against that global column,
+// and the table and the scratch are [E+1, w] and [w, pitch].  The whole
+// table is c0 = 0, w = n.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -155,13 +161,16 @@ __device__ __forceinline__ void put8(short* dst, const short* col, int from) {
 __global__ void __launch_bounds__(kThreads, 1)
 la_walk_kernel(const int* __restrict__ sp, const int* __restrict__ op,
                const int* __restrict__ creator, const int* __restrict__ seq,
-               const int* __restrict__ n_events_ptr, int e1, int n,
+               const int* __restrict__ n_events_ptr, int e1, int c0, int n,
                int* __restrict__ la, short* __restrict__ cols, int pitch,
                long long* __restrict__ prof) {
+  // n: the columns of this launch (the table's width); block c fills
+  // global column c0 + c
   __shared__ int stage_buf[2][4][kW];  // sp, op, creator, seq of two windows
   extern __shared__ __align__(16) short col[];  // the column: e1 cells + spare
 
   const int c = blockIdx.x;
+  const int lane_c = c0 + c;
   const int t = threadIdx.x;
   short* const mine = cols + static_cast<long long>(c) * pitch;
   const long long t_start = prof ? now_ns() : 0;
@@ -230,7 +239,7 @@ la_walk_kernel(const int* __restrict__ sp, const int* __restrict__ op,
         const int no = __shfl_sync(kFull, x, o & 31);
         const int ls = ld_s16(col_s + 2u * static_cast<unsigned>(s_in ? s : 0));
         const int lo = ld_s16(col_s + 2u * static_cast<unsigned>(o_in ? o : 0));
-        const bool own = (static_cast<int>(meta) >> 16) == c;
+        const bool own = (static_cast<int>(meta) >> 16) == lane_c;
         const bool go =
             live && (own || ((!s_in || ns > s) && (!o_in || no > o)));
         const int v = own ? sext16(meta) : max(s_in ? ls : -1, o_in ? lo : -1);
@@ -339,8 +348,9 @@ la_walk_kernel(const int* __restrict__ sp, const int* __restrict__ op,
 
 // C ABI for ctypes.  Pointers are device pointers; n_events is a device
 // int32 scalar (read by the kernel, so the host never synchronises).
-// cols is int16 scratch [n, pitch], 16-byte aligned, pitch a multiple of 8
-// and at least e1.  prof is null, or a device int64 [n, 4] that receives,
+// The launch fills columns [c0, c0 + w): la is int32 [e1, w] and cols
+// int16 scratch [w, pitch], 16-byte aligned, pitch a multiple of 8 and at
+// least e1.  prof is null, or a device int64 [w, 4] that receives,
 // per block, the globaltimer (ns) at its start, at the end of the walk and
 // at the end of the epilogue, and the walking warp's rounds.  Returns the cudaError_t of
 // the attribute call or the launch (0 = cudaSuccess); a column too large
@@ -352,9 +362,10 @@ extern "C" int la_walk_dynamic_smem(int e1) { return (e1 + 1 + 7) / 8 * 16; }
 
 extern "C" int la_walk_launch(const int* sp, const int* op, const int* creator,
                               const int* seq, const int* n_events, int e1,
-                              int n, int* la, short* cols, int pitch,
+                              int c0, int w, int* la, short* cols, int pitch,
                               long long* prof, void* stream) {
-  if (n < 1 || n > kMaxN || e1 < 1 || pitch % 8 != 0 || pitch < e1 ||
+  if (w < 1 || w > kMaxN || c0 < 0 || c0 + w > kMaxN || e1 < 1 ||
+      pitch % 8 != 0 || pitch < e1 ||
       reinterpret_cast<unsigned long long>(cols) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -363,11 +374,11 @@ extern "C" int la_walk_launch(const int* sp, const int* op, const int* creator,
   cudaError_t err = cudaFuncSetAttribute(
       la_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // cooperative: all n blocks resident at once, for the grid-wide sync
-  void* args[] = {&sp, &op, &creator, &seq, &n_events, &e1, &n, &la, &cols,
-                  &pitch, &prof};
+  // cooperative: all w blocks resident at once, for the grid-wide sync
+  void* args[] = {&sp, &op, &creator, &seq, &n_events, &e1, &c0, &w, &la,
+                  &cols, &pitch, &prof};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(la_walk_kernel),
-                                    dim3(n), dim3(kThreads), args, dyn,
+                                    dim3(w), dim3(kThreads), args, dyn,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

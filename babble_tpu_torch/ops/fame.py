@@ -20,6 +20,14 @@ Past ``BLOCK_FAME_THRESHOLD`` elements of [R, N, N] working set the
 round-serial ``"block"`` form takes over (``decide_fame_block_impl``):
 rounds are voted one at a time, each over consecutive-round witness
 pairs, so nothing of shape [R, N, N] exists.
+
+Column shards (``parallel/sharded.py``): with an ``axis``
+(``parallel.collectives.ColumnShard``) la/fd hold the columns
+``[axis.lo, axis.hi)``.  The strongly-see counts are partials over
+those columns summed over the axis; the votes are column-local in the
+voted-on witness x (``votes[.., w, x]`` reads la column x), so each rank
+decides the fame of its own witness columns, and the decisions are
+gathered over the axis before the lcr reduction.
 """
 
 from __future__ import annotations
@@ -69,14 +77,21 @@ def _ss_next_counts(law_next: torch.Tensor,
     ])
 
 
+def _cols(axis, n: int) -> slice:
+    """The columns of la/fd this rank holds (all without an axis)."""
+    return slice(0, n) if axis is None else slice(axis.lo, axis.hi)
+
+
 def decide_fame_impl(cfg: DagConfig, state: DagState,
-                     gate: bool = False) -> DagState:
+                     gate: bool = False, axis=None) -> DagState:
     """Diagonal-scan DecideFame.  ``gate=True`` applies the witness-set
     finality gate of the live engine (a round may only decide once every
-    non-stale chain head has passed it); the batch step runs ungated."""
+    non-stale chain head has passed it); the batch step runs ungated.
+    ``axis``: la/fd hold its columns (module docstring)."""
     n, r_cap, sm = cfg.n, cfg.r_cap, cfg.super_majority
     R = r_cap
     dev = state.wslot.device
+    xl = _cols(axis, n)
 
     wsl = state.wslot[:R]                              # i32[R, N]
     valid_w = wsl >= 0
@@ -88,7 +103,8 @@ def decide_fame_impl(cfg: DagConfig, state: DagState,
 
     # law rows of the *next* round, aligned to index r (-1 rows past end)
     law_next = torch.cat(
-        [law[1:], torch.full((1, n, n), -1, dtype=law.dtype, device=dev)]
+        [law[1:], torch.full((1,) + law.shape[1:], -1, dtype=law.dtype,
+                             device=dev)]
     )
     valid_next = torch.cat(
         [valid_w[1:], torch.zeros((1, n), dtype=torch.bool, device=dev)]
@@ -96,16 +112,19 @@ def decide_fame_impl(cfg: DagConfig, state: DagState,
 
     # ss_next[r, a, b]: witness a of round r+1 strongly sees witness b of round r
     ss_cnt = _ss_next_counts(law_next, fdw)
+    if axis is not None:
+        ss_cnt = axis.count("fame_diag", ss_cnt, fdw.shape[-1])
     ss_next = (
         (ss_cnt >= sm) & valid_next[:, :, None] & valid_w[:, None, :]
     ).to(F32)
     tot_next = ss_next.sum(-1)                         # f32[R, N]
 
     # see_next[r, a, x]: witness a of round r+1 sees witness x of round r
+    # (x over this rank's columns)
     see_next = (
-        (law_next >= seqw[:, None, :])
+        (law_next >= seqw[:, None, xl])
         & valid_next[:, :, None]
-        & valid_w[:, None, :]
+        & valid_w[:, None, xl]
     ).to(F32)
 
     # zero-padded doubles so the slice at offset d stays in range
@@ -127,7 +146,8 @@ def decide_fame_impl(cfg: DagConfig, state: DagState,
     # here the bound is read once with .item()
     d_max = max(int((state.max_round - torch.clamp(state.lcr, min=-1)).item()), 2)
     votes = see_next
-    famous = state.famous[:R].clone()
+    famous = state.famous[:R, xl].clone()
+    valid_x = valid_w[:, xl]
     for d in range(2, d_max + 1):
         # voting round j = i + d exists only while j <= max_round
         can_vote = (i_idx + d) <= state.max_round                   # [R]
@@ -143,7 +163,7 @@ def decide_fame_impl(cfg: DagConfig, state: DagState,
         t = torch.maximum(yays, nays)
         strong = t >= sm                                            # [R, N, N]
 
-        undecided = (famous == FAME_UNDEFINED) & valid_w & in_window[:, None]
+        undecided = (famous == FAME_UNDEFINED) & valid_x & in_window[:, None]
         # coin-round period = number of real participants (hashgraph.go:643)
         normal = (d % cfg.active_n) != 0
 
@@ -160,6 +180,8 @@ def decide_fame_impl(cfg: DagConfig, state: DagState,
         new_votes = v if normal else torch.where(strong, v, mb_d[:, :, None])
         votes = torch.where(can_vote[:, None, None], new_votes.to(F32), votes)
 
+    if axis is not None:
+        famous = axis.gather(famous, 1)
     # advance last consensus round: highest window round with all
     # witnesses decided
     decided_round = ((~valid_w) | (famous != FAME_UNDEFINED)).all(dim=1)
@@ -201,7 +223,7 @@ def fame_mode(cfg: DagConfig) -> str:
 
 def decide_fame_block_impl(cfg: DagConfig, state: DagState,
                            batch_window: bool = True,
-                           gate: bool = False) -> DagState:
+                           gate: bool = False, axis=None) -> DagState:
     """Memory-blocked DecideFame (the JAX package's block form): the same
     decisions as ``decide_fame_impl`` with nothing of shape [R, N, N].
 
@@ -229,32 +251,42 @@ def decide_fame_block_impl(cfg: DagConfig, state: DagState,
         [lo, hi, state.max_round, state.r_off]).tolist())
 
     famous_tab = state.famous.clone()
+
+    def undecided(famous_i, valid_i):
+        und = ((famous_i == FAME_UNDEFINED) & valid_i).any()
+        return bool((und if axis is None else axis.max(und)).item())
+
     for i in range(lo, hi):
         i_abs = i + r_off
-        votes, famous_i, valid_i = fame_round_init(cfg, state, i, famous_tab)
+        votes, famous_i, valid_i = fame_round_init(cfg, state, i, famous_tab,
+                                                   axis)
         d = 2
-        while i_abs + d <= max_round and bool(
-                ((famous_i == FAME_UNDEFINED) & valid_i).any().item()):
+        while i_abs + d <= max_round and undecided(famous_i, valid_i):
             votes, famous_i = fame_vote_math(
-                cfg, state, i, d, votes, famous_i, valid_i, batch_window
+                cfg, state, i, d, votes, famous_i, valid_i, batch_window,
+                axis,
             )
             d += 1
-        famous_tab[i] = famous_i
+        famous_tab[i] = famous_i if axis is None \
+            else axis.gather(famous_i, 0)
     return repack_round_bits(cfg, state._replace(
         famous=famous_tab,
         lcr=fame_advance_lcr(cfg, state, famous_tab, gate),
     ))
 
 
-def fame_round_init(cfg: DagConfig, state: DagState, i: int, famous_tab):
+def fame_round_init(cfg: DagConfig, state: DagState, i: int, famous_tab,
+                    axis=None):
     """Per-round voting setup: d=1 direct see votes by round i+1
     witnesses (creator-indexed columns, as in the diagonal scan's
-    see_next).  Returns (votes0, famous_i, valid_i)."""
+    see_next).  Returns (votes0, famous_i, valid_i); with ``axis``, over
+    its witness columns x.  la/fd then hold those columns."""
     e_cap = cfg.e_cap
-    ws_i = _wrow(state.wslot, i)
+    xl = _cols(axis, cfg.n)
+    ws_i = _wrow(state.wslot, i)[xl]
     valid_i = ws_i >= 0
     seqw_i = state.seq[sanitize(ws_i, e_cap).long()]
-    famous_i = _wrow(famous_tab, i)
+    famous_i = _wrow(famous_tab, i)[xl]
 
     ws_1 = _wrow(state.wslot, i + 1)
     valid_1 = ws_1 >= 0
@@ -266,12 +298,14 @@ def fame_round_init(cfg: DagConfig, state: DagState, i: int, famous_tab):
 
 
 def fame_vote_math(cfg: DagConfig, state: DagState, i: int, d: int, votes,
-                   famous_i, valid_i, batch_window: bool):
+                   famous_i, valid_i, batch_window: bool, axis=None):
     """One voting step at distance d for round i: round i+d's witnesses
     tally round i+d-1's votes on round i's witnesses.  The tally is an
     f32 matmul of 0/1 operands (JAX: bf16 operands, f32 accumulation),
     exact under any matmul precision: 0 and 1 are exact in TF32 and
-    bf16, and the sums stay below 2^24.  Returns (votes', famous_i')."""
+    bf16, and the sums stay below 2^24.  Returns (votes', famous_i').
+    With ``axis`` the count is a partial over la/fd's columns, summed,
+    and the votes cover its witness columns x."""
     sm, e_cap = cfg.super_majority, cfg.e_cap
     jl = i + d                      # window row of voting round j
     ws_j = _wrow(state.wslot, jl)
@@ -283,6 +317,8 @@ def fame_vote_math(cfg: DagConfig, state: DagState, i: int, d: int, votes,
     fdw_p = state.fd[sanitize(ws_p, e_cap).long()]
 
     cnt = ss_counts(law_j, fdw_p, cfg.s_cap, batch_window)
+    if axis is not None:
+        cnt = axis.count("fame_block", cnt, fdw_p.shape[-1])
     ss = ((cnt >= sm) & valid_j[:, None] & valid_p[None, :]).to(F32)
     tot = ss.sum(-1)                                    # [N]
     yays = ss @ votes                                   # [N_y, N_x]
@@ -332,8 +368,8 @@ def _wrow(tab: torch.Tensor, r_loc: int) -> torch.Tensor:
 
 def decide_fame_auto_impl(cfg: DagConfig, state: DagState,
                           batch_window: bool = True,
-                          gate: bool = False) -> DagState:
+                          gate: bool = False, axis=None) -> DagState:
     """Static shape-based dispatch between the two DecideFame forms."""
     if fame_mode(cfg) == "block":
-        return decide_fame_block_impl(cfg, state, batch_window, gate)
-    return decide_fame_impl(cfg, state, gate)
+        return decide_fame_block_impl(cfg, state, batch_window, gate, axis)
+    return decide_fame_impl(cfg, state, gate, axis)

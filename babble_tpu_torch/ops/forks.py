@@ -32,6 +32,29 @@ coordinates fit 15 bits it compares window-relative int16 branch
 planes, two creators to a 32-bit word, with the detection mask folded
 into the viewer side (``viewer_planes``, ``witness_planes``).
 
+Column shards (``parallel/sharded.py make_sharded_fork_step``): the
+pipeline takes an optional ``axis`` (``parallel.collectives
+.ColumnShard`` over the B branch columns, whole creators to a rank:
+columns are creator-major, so a contiguous B/p range holds the creators
+``[lo/k, hi/k)``).  With one, la, fd and helper hold the rank's branch
+columns and ``first_det`` its branch rows.  What is column-local and
+what is gathered:
+
+- column-local: the la scan (``_la_scan``: own rows and the max over
+  parents), the reverse fd scan, ``first_det`` and ``helper`` (rows of
+  the rank's branches), fame's votes on its witness columns and the
+  see count of round received;
+- gathered over the axis inside the pipeline: ``det`` (each rank
+  detects forks of its own creators, then every rank needs every
+  creator's flag: ``first_det`` reads det at its chains' events for all
+  creators), la's columns for the chain-view fd fill (``_fd_chains``
+  counts over chain positions and reads every branch column of a
+  chain's events), fame's decisions before the lcr reduction, and the
+  median's masked timestamp columns before its row sort;
+- every strongly-see compare-count (``ss``: the closure's and fame's)
+  counts over the rank's creators, with det, the la/helper rows and the
+  int16 planes cut to them, then an all-reduce SUM.
+
 Device control: each ``lax.scan`` over the level schedule is a Python
 loop over the schedule rows, each ``while_loop`` a Python loop with one
 ``.item()`` a pass, and the fame ``fori_loop`` runs to ``max_round``,
@@ -759,11 +782,17 @@ def _e_row(cfg: ForkConfig, dev) -> torch.Tensor:
     return (torch.arange(cfg.e_cap + 1, device=dev) == cfg.e_cap)[:, None]
 
 
-def _own_rows(cfg: ForkConfig, b: ForkBatch, none: int) -> torch.Tensor:
+def _cols(axis, b: int) -> slice:
+    """The branch columns this rank holds (all without an axis)."""
+    return slice(0, b) if axis is None else slice(axis.lo, axis.hi)
+
+
+def _own_rows(cfg: ForkConfig, b: ForkBatch, none: int,
+              axis=None) -> torch.Tensor:
     """Each event's own contribution row: its chain index on every chain
     that contains it (the cp mask), ``none`` elsewhere."""
     q = b.eseq[:, None]
-    cp_rows = b.cp[b.ebr.clamp(0, cfg.b - 1).long()]           # [E+1, B]
+    cp_rows = b.cp[b.ebr.clamp(0, cfg.b - 1).long()][:, _cols(axis, cfg.b)]
     return torch.where((cp_rows > q) & (q >= 0), q,
                        torch.full((), none, dtype=I32, device=q.device))
 
@@ -777,12 +806,12 @@ def _sched_rows(cfg: ForkConfig, b: ForkBatch):
     return idx, spx, opx
 
 
-def _la_scan(cfg: ForkConfig, b: ForkBatch) -> torch.Tensor:
+def _la_scan(cfg: ForkConfig, b: ForkBatch, axis=None) -> torch.Tensor:
     """la[x, br] = highest chain-(br) index among x's ancestors.  The own
     row seeds la (a slot is written by exactly one schedule step, after
     its parents), and each step takes the max with the parents' rows;
     pad lanes read and write the sentinel row, which stays -1."""
-    la = _own_rows(cfg, b, -1)
+    la = _own_rows(cfg, b, -1, axis)
     idx, spx, opx = _sched_rows(cfg, b)
     for t in range(idx.shape[0]):
         rows = torch.maximum(la[idx[t]],
@@ -791,47 +820,53 @@ def _la_scan(cfg: ForkConfig, b: ForkBatch) -> torch.Tensor:
     return set_sentinel(la, _e_row(cfg, la.device), -1)
 
 
-def _detect(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor) -> torch.Tensor:
+def _detect(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
+            axis=None) -> torch.Tensor:
     """det[x, i]: x's ancestry contains a fork pair by creator i — some
-    pair of i's branches is visible past their common prefix."""
+    pair of i's branches is visible past their common prefix.  With
+    ``axis``, each rank detects its own creators and the flags are
+    gathered."""
     n, k = cfg.n, cfg.k
-    lg = la.reshape(la.shape[0], n, k)                         # [E+1, N, K]
+    c0 = 0 if axis is None else axis.lo // k
+    nl = la.shape[1] // k
+    lg = la.reshape(la.shape[0], nl, k)                        # [E+1, N, K]
     cpg = b.cp.reshape(n, k, n, k)
-    ar = torch.arange(n, device=la.device)
+    ar = torch.arange(c0, c0 + nl, device=la.device)
     cpk = cpg[ar, :, ar, :]                                    # [N, K, K]
     off = ~torch.eye(k, dtype=torch.bool, device=la.device)
-    det = torch.empty((la.shape[0], n), dtype=torch.bool, device=la.device)
+    det = torch.empty((la.shape[0], nl), dtype=torch.bool, device=la.device)
     step = max(1, PLAIN_BUDGET_BYTES // max(1, n * k * k))
     for x0 in range(0, la.shape[0], step):
         vis = lg[x0:x0 + step, :, :, None] >= cpk[None]        # [Xc, N, K, K]
         pair = vis & vis.transpose(-1, -2)
         det[x0:x0 + step] = (pair & off).flatten(2).any(-1)
-    return det
+    return det if axis is None else axis.gather(det, 1)
 
 
-def _first_det(cfg: ForkConfig, b: ForkBatch,
-               det: torch.Tensor) -> torch.Tensor:
+def _first_det(cfg: ForkConfig, b: ForkBatch, det: torch.Tensor,
+               axis=None) -> torch.Tensor:
     """first_det[br, c]: first ABSOLUTE chain index on branch br whose
     event detects a fork by c (INT32_MAX if none).  Detection is
     monotone along a chain, so it is a count of the False prefix plus the
-    branch's window offset."""
-    dchain = det[sanitize(b.ce, cfg.e_cap).long()]              # [B, S+1, N]
+    branch's window offset.  With ``axis``, the rank's branch rows."""
+    bl = _cols(axis, cfg.b)
+    dchain = det[sanitize(b.ce[bl], cfg.e_cap).long()]          # [B, S+1, N]
     live = (torch.arange(cfg.s_cap + 1, device=det.device)[None, :]
-            < b.cnt[:, None])[:, :, None]
-    first = ((~dchain) & live).sum(1, dtype=I32) + b.s_off[:, None]
+            < b.cnt[bl, None])[:, :, None]
+    first = ((~dchain) & live).sum(1, dtype=I32) + b.s_off[bl, None]
     hit = (dchain & live).any(1)
     return torch.where(hit, first, INT32_MAX)
 
 
-def _fd_reverse(cfg: ForkConfig, b: ForkBatch) -> torch.Tensor:
+def _fd_reverse(cfg: ForkConfig, b: ForkBatch, axis=None) -> torch.Tensor:
     """First-descendant fill by reverse level scan: walking levels
     deepest-first, an event's fd row is final before its parents absorb
     it by scatter-min (several children may share a parent: ``amin``
     with the old value included, which no write order changes); the own
     contribution covers every chain containing the event."""
-    fd = _own_rows(cfg, b, INT32_MAX)
+    fd = _own_rows(cfg, b, INT32_MAX, axis)
     idx, spx, opx = _sched_rows(cfg, b)
-    B = cfg.b
+    B = fd.shape[1]
     for t in range(idx.shape[0] - 1, -1, -1):
         rows = fd[idx[t]]
         tgt = torch.cat([spx[t], opx[t]])[:, None].expand(-1, B)
@@ -840,25 +875,31 @@ def _fd_reverse(cfg: ForkConfig, b: ForkBatch) -> torch.Tensor:
     return set_sentinel(fd, _e_row(cfg, fd.device), INT32_MAX)
 
 
-def _fd_chains(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor) -> torch.Tensor:
+def _fd_chains(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
+               axis=None) -> torch.Tensor:
     """fd[y, br] = first chain-(br) index of a descendant of y: a
     compare-count over the monotone chain view, processed in chain-column
     chunks (and threshold chunks inside) so that the ``[Cb, S+1, B]``
-    gather and the ``[Cb, B, T]`` counts stay bounded."""
+    gather and the ``[Cb, B, T]`` counts stay bounded.  With ``axis``,
+    the rank's fd columns from la's columns gathered over it."""
     B, s_cap = cfg.b, cfg.s_cap
     e1 = cfg.e_cap + 1
     dev = la.device
     s1 = s_cap + 1
     s_idx = torch.arange(s1, device=dev)
+    bl = _cols(axis, B)
+    if axis is not None:
+        la = axis.gather(la, 1)
 
     cb = max(1, min(B, 2 ** 27 // max(1, s1 * B)))
     tc = max(1, min(s1, 2 ** 27 // max(1, cb * s1 * B)))
     # all-chains owned-target grid (rows disjoint across chains; every
     # unowned position dumps into the sentinel row)
     tgt = sanitize(torch.where(b.owner, b.ce, -1), cfg.e_cap).long()
-    fd = torch.full((e1, B), INT32_MAX, dtype=I32, device=dev)
-    for c0 in range(0, B, cb):
-        c1 = min(B, c0 + cb)
+    fd = torch.full((e1, bl.stop - bl.start), INT32_MAX, dtype=I32,
+                    device=dev)
+    for c0 in range(bl.start, bl.stop, cb):
+        c1 = min(bl.stop, c0 + cb)
         ce_c, cnt_c, s_off_c = b.ce[c0:c1], b.cnt[c0:c1], b.s_off[c0:c1]
         V = la[sanitize(ce_c, cfg.e_cap).long()]               # [Cb, S+1, B]
         V = torch.where((s_idx[None, :] < cnt_c[:, None])[:, :, None], V,
@@ -876,7 +917,8 @@ def _fd_chains(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor) -> torch.Tensor:
         out = torch.where(found, out + s_off_c[:, None, None], INT32_MAX)
         block = torch.full((e1, c1 - c0), INT32_MAX, dtype=I32, device=dev)
         block[tgt.reshape(-1)] = out.permute(1, 2, 0).reshape(-1, c1 - c0)
-        fd[:, c0:c1] = set_sentinel(block, _e_row(cfg, dev), INT32_MAX)
+        fd[:, c0 - bl.start:c1 - bl.start] = set_sentinel(
+            block, _e_row(cfg, dev), INT32_MAX)
     return fd
 
 
@@ -897,9 +939,30 @@ def _or_creators(x: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
+def _window(cfg: ForkConfig, b: ForkBatch, axis) -> SsWindow:
+    """The chain window of the rank's branch columns."""
+    return SsWindow(b.s_off[_cols(axis, cfg.b)], cfg.s_cap)
+
+
+def _det_cols(cfg: ForkConfig, det: torch.Tensor, axis) -> torch.Tensor:
+    """det's columns of the rank's creators (all without an axis)."""
+    if axis is None:
+        return det
+    return det[..., axis.lo // cfg.k:axis.hi // cfg.k]
+
+
+def _ss_total(ss, axis, site: str, la_x, det_x, helper_w, k, window):
+    """The strongly-see count: ``ss`` on the rank's creators, summed
+    over the axis."""
+    cnt = ss(la_x, det_x, helper_w, k, window=window)
+    if axis is None:
+        return cnt
+    return axis.count(site, cnt, la_x.shape[-1])
+
+
 def _rounds_closure(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
                     det: torch.Tensor, helper: torch.Tensor, ss=ss_counts,
-                    stats: Optional[dict] = None):
+                    stats: Optional[dict] = None, axis=None):
     """Round assignment as a per-round closure iteration (the JAX
     package's ``_rounds_closure``; see its docstring for the argument).
 
@@ -938,8 +1001,8 @@ def _rounds_closure(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
     r, passes = 0, 0
     alive = True
     # every round counts against the same la and det: narrowed once
-    win = SsWindow(b.s_off, s_cap)
-    la_g, det_g = la[None], det[None]
+    win = _window(cfg, b, axis)
+    la_g, det_g = la[None], _det_cols(cfg, det, axis)[None]
     while alive and r < r_cap:
         # candidate frontier: first chain position with round >= r
         rnd_chain = torch.where(live_chain, rnd[cex], -1)
@@ -950,7 +1013,8 @@ def _rounds_closure(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
         wsx = sanitize(torch.where(valid_w, ws, -1), cfg.e_cap).long()
         hw = torch.where(valid_w[:, None], helper[wsx], INT32_MAX)  # [B, B]
 
-        ss_cnt = ss(la_g, det_g, hw[None].contiguous(), k, window=win)[0]
+        ss_cnt = _ss_total(ss, axis, "fork_closure", la_g, det_g,
+                           hw[None].contiguous(), k, win)[0]
         ss_c = _or_creators((ss_cnt >= sm) & valid_w[None, :], k)
         pr_gt = torch.maximum(rnd[spx], rnd[opx]) > r
         S = unassigned & ((ss_c.sum(-1) >= sm) | pr_gt)
@@ -1039,12 +1103,17 @@ def _rounds_scan(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
 
 def _fame(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor, det: torch.Tensor,
           helper: torch.Tensor, wslot: torch.Tensor, max_round: torch.Tensor,
-          ss=ss_counts):
+          ss=ss_counts, axis=None):
     """Virtual voting over branch witnesses (diagonal scan).  Baird's
     strongly-seeing lemma keeps vote tallies per-creator unique, so
-    summing over branch columns never double-counts."""
+    summing over branch columns never double-counts.  With ``axis`` the
+    votes run over the rank's witness columns x (``la_ax`` reads la
+    column ``brw[x]``, which is x for every valid witness: a branch
+    registers only events it owns)."""
     n, k, B, sm, R = cfg.n, cfg.k, cfg.b, cfg.super_majority, cfg.r_cap
     dev = la.device
+    xl = _cols(axis, B)
+    bw = la.shape[1]
 
     wsl = wslot[:R]                                            # [R, B]
     valid_w = wsl >= 0
@@ -1053,11 +1122,11 @@ def _fame(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor, det: torch.Tensor,
     detw = det[ws]                                             # [R, B, N]
     hw = torch.where(valid_w[:, :, None], helper[ws], INT32_MAX)
     seqw = torch.where(valid_w, b.eseq[ws], INT32_MAX)         # [R, B]
-    brw = b.ebr[ws].clamp(0, B - 1).long()
-    crw = b.ecr[ws].clamp(0, n - 1).long()
+    brw = (b.ebr[ws][:, xl] - xl.start).clamp(0, bw - 1).long()
+    crw = b.ecr[ws][:, xl].clamp(0, n - 1).long()
     mbw = b.mbit[ws]
 
-    law_next = torch.cat([law[1:], torch.full((1, B, B), -1, dtype=I32,
+    law_next = torch.cat([law[1:], torch.full((1, B, bw), -1, dtype=I32,
                                               device=dev)])
     detw_next = torch.cat([detw[1:], torch.zeros((1, B, n), dtype=torch.bool,
                                                  device=dev)])
@@ -1065,17 +1134,18 @@ def _fame(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor, det: torch.Tensor,
                                                      device=dev)])
 
     # ss_next[r, a, w]: round r+1 witness a strongly sees round r witness w
-    ss_cnt = ss(law_next, detw_next, hw, k,
-                window=SsWindow(b.s_off, cfg.s_cap))           # [R, A, W]
+    ss_cnt = _ss_total(ss, axis, "fork_fame", law_next,
+                       _det_cols(cfg, detw_next, axis), hw, k,
+                       _window(cfg, b, axis))                  # [R, A, W]
     ss_next = ((ss_cnt >= sm) & valid_next[:, :, None]
                & valid_w[:, None, :]).to(F32)
     tot_next = ss_next.sum(-1)
 
     # see_next[r, a, x]: direct votes — a sees x
-    la_ax = torch.gather(law_next, 2, brw[:, None, :].expand(R, B, B))
-    det_ax = torch.gather(detw_next, 2, crw[:, None, :].expand(R, B, B))
-    see_next = ((la_ax >= seqw[:, None, :]) & ~det_ax
-                & valid_next[:, :, None] & valid_w[:, None, :]).to(F32)
+    la_ax = torch.gather(law_next, 2, brw[:, None, :].expand(R, B, bw))
+    det_ax = torch.gather(detw_next, 2, crw[:, None, :].expand(R, B, bw))
+    see_next = ((la_ax >= seqw[:, None, xl]) & ~det_ax
+                & valid_next[:, :, None] & valid_w[:, None, xl]).to(F32)
 
     ss_pad = torch.cat([ss_next, torch.zeros((R, B, B), dtype=F32,
                                              device=dev)])
@@ -1087,7 +1157,8 @@ def _fame(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor, det: torch.Tensor,
     i_idx = torch.arange(R, dtype=I32, device=dev)
     in_window = i_idx < max_round
     votes = see_next
-    famous = torch.zeros((R, B), dtype=I8, device=dev)
+    famous = torch.zeros((R, bw), dtype=I8, device=dev)
+    valid_x = valid_w[:, xl]
     one = torch.full((), FAME_TRUE, dtype=I8, device=dev)
     two = torch.full((), FAME_FALSE, dtype=I8, device=dev)
     # steps past max_round vote nowhere (can_vote is False), so the loop
@@ -1108,7 +1179,7 @@ def _fame(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor, det: torch.Tensor,
         t = torch.maximum(yays, nays)
         strong = t >= sm
 
-        undecided = (famous == FAME_UNDEFINED) & valid_w & in_window[:, None]
+        undecided = (famous == FAME_UNDEFINED) & valid_x & in_window[:, None]
         normal = (d % n) != 0
         deciding = strong & can_vote[:, None, None] if normal \
             else torch.zeros_like(strong)
@@ -1119,6 +1190,8 @@ def _fame(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor, det: torch.Tensor,
         new_votes = v if normal else torch.where(strong, v, mb_d[:, :, None])
         votes = torch.where(can_vote[:, None, None], new_votes.to(F32), votes)
 
+    if axis is not None:
+        famous = axis.gather(famous, 1)
     decided_round = ((~valid_w) | (famous != FAME_UNDEFINED)).all(1)
     has_w = valid_w.any(1)
     cand = in_window & decided_round & has_w
@@ -1130,10 +1203,14 @@ def _fame(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor, det: torch.Tensor,
 
 def _order(cfg: ForkConfig, b: ForkBatch, fd: torch.Tensor,
            first_det: torch.Tensor, wslot: torch.Tensor,
-           famous: torch.Tensor, rnd: torch.Tensor, max_round: torch.Tensor):
-    """Round received + median consensus timestamps (fork-aware sees)."""
+           famous: torch.Tensor, rnd: torch.Tensor, max_round: torch.Tensor,
+           axis=None):
+    """Round received + median consensus timestamps (fork-aware sees).
+    With ``axis``: the see count over the rank's branch columns, summed;
+    the median's timestamp columns gathered before the sort."""
     n, B, R, e1 = cfg.n, cfg.b, cfg.r_cap, cfg.e_cap + 1
     dev = fd.device
+    xl = _cols(axis, B)
 
     wsl = wslot[:R]
     valid_w = wsl >= 0
@@ -1150,59 +1227,73 @@ def _order(cfg: ForkConfig, b: ForkBatch, fd: torch.Tensor,
     rr = torch.full((e1,), -1, dtype=I32, device=dev)
     for i in range(1, R):
         active = decided[i] & has_w[i] & (i <= max_round)
-        sees = fam[i][None, :] & (fd <= seqw[i][None, :]) \
-            & (seqw[i][None, :] < fdet_x)                      # [E+1, B]
+        sees = fam[i][None, xl] & (fd <= seqw[i][None, xl]) \
+            & (seqw[i][None, xl] < fdet_x)                     # [E+1, B]
         c = sees.sum(1)
+        if axis is not None:
+            c = axis.count("fork_order_sees", c, sees.shape[1])
         cond = (valid_e & (rr == -1) & (i > rnd) & active
                 & (c > fam_cnt[i] // 2))
         rr = torch.where(cond, i, rr)
     newly = valid_e & (rr != -1)
 
     i_of = rr.clamp(0, R - 1).long()
-    fam_i, seqw_i = fam[i_of], seqw[i_of]
+    fam_i, seqw_i = fam[i_of][:, xl], seqw[i_of][:, xl]
     sees_i = fam_i & (fd <= seqw_i) & (seqw_i < fdet_x)        # [E+1, B]
 
     # tv[x, br] = ts of chain-br's event at index fd[x, br] (the oldest
     # self-ancestor of that branch's witness to see x).  fdc lies in
     # [0, s_cap], so the JAX package's s_cap+1 masked passes write every
     # entry exactly once: one gather computes the same tv
-    ts_grid = b.ts[sanitize(b.ce, cfg.e_cap).long()]           # i64[B, S+1]
-    fdc = (fd - b.s_off[None, :]).clamp(0, cfg.s_cap).long()
+    ts_grid = b.ts[sanitize(b.ce[xl], cfg.e_cap).long()]       # i64[B, S+1]
+    fdc = (fd - b.s_off[None, xl]).clamp(0, cfg.s_cap).long()
     tv = torch.gather(ts_grid.T, 0, fdc)                       # [E+1, B]
     tv = torch.where(sees_i, tv, INT64_MAX)
-    tv_sorted = torch.sort(tv, dim=1).values
     cnt_s = sees_i.sum(1)
+    if axis is not None:
+        tv = axis.gather(tv, 1)
+        cnt_s = axis.sum(cnt_s)
+    tv_sorted = torch.sort(tv, dim=1).values
     med = tv_sorted.gather(1, (cnt_s // 2).clamp(0, B - 1)[:, None])[:, 0]
     cts = torch.where(newly, med, 0)
     return rr, cts
 
 
 def fork_pipeline(cfg: ForkConfig, b: ForkBatch, ss=ss_counts,
-                  stats: Optional[dict] = None) -> ForkOut:
+                  stats: Optional[dict] = None, axis=None) -> ForkOut:
     """The whole fork-aware pipeline on ``b``'s device.  ``ss`` is the
     strongly-see compare-count, called as ``ss(la_x, det_x, helper_w,
     k, window=SsWindow(b.s_off, cfg.s_cap))``: ``ss_counts``, which
     launches the kernels on CUDA tensors, or, for the plain run, a
     function that passes the first four to ``ss_counts_plain``;
     ``stats``, if given, receives the closure's round and pass counts
-    and the fd strategy."""
-    la = _la_scan(cfg, b)
-    det = _detect(cfg, b, la)
-    first_det = _first_det(cfg, b, det)
+    and the fd strategy.  ``axis`` (a ``ColumnShard`` over the branch
+    columns): one rank's part of the sharded fork step (module
+    docstring); its ``la``, ``fd`` are the rank's columns, ``det``,
+    ``wslot``, ``famous`` and the per-event outputs whole."""
+    if axis is not None and (axis.lo % cfg.k or axis.hi % cfg.k):
+        raise ValueError(f"branch columns [{axis.lo}, {axis.hi}) do not "
+                         f"hold whole creators of k={cfg.k}")
+    la = _la_scan(cfg, b, axis)
+    det = _detect(cfg, b, la, axis)
+    first_det = _first_det(cfg, b, det, axis)
     # the JAX package's static choice between the two fd strategies
     if fd_reverse_scan_wins(b.sched.shape[0], cfg.e_cap, cfg.k):
-        fd = _fd_reverse(cfg, b)
+        fd = _fd_reverse(cfg, b, axis)
         fd_mode = "reverse"
     else:
-        fd = _fd_chains(cfg, b, la)
+        fd = _fd_chains(cfg, b, la, axis)
         fd_mode = "chains"
     if stats is not None:
         stats["fd"] = fd_mode
     helper = _helper(cfg, b, fd, first_det)
     rnd, wit, wslot, max_round = _rounds_closure(cfg, b, la, det, helper,
-                                                 ss=ss, stats=stats)
-    famous, lcr = _fame(cfg, b, la, det, helper, wslot, max_round, ss=ss)
-    rr, cts = _order(cfg, b, fd, first_det, wslot, famous, rnd, max_round)
+                                                 ss=ss, stats=stats,
+                                                 axis=axis)
+    famous, lcr = _fame(cfg, b, la, det, helper, wslot, max_round, ss=ss,
+                        axis=axis)
+    rr, cts = _order(cfg, b, fd, first_det, wslot, famous, rnd, max_round,
+                     axis)
     return ForkOut(
         la=la, det=det, fd=fd, round=rnd, witness=wit, wslot=wslot,
         famous=famous, rr=rr, cts=cts, max_round=max_round, lcr=lcr,

@@ -19,6 +19,18 @@ All five give identical tensors on a batch that holds the whole DAG;
 ``"incremental"`` and ``"full"`` also append a batch to a filled state.
 As in the JAX package, an unknown mode takes the ``"full"`` branches.
 
+Column shards (``parallel/sharded.py``): the la/fd fills of modes
+``"incremental"``, ``"full"``, ``"fast"`` and ``"walk"`` take an
+optional ``axis``, a
+``parallel.collectives.ColumnShard``.  With one, la and fd hold only the
+global columns ``[axis.lo, axis.hi)``: the fills are column-local (the
+creator test is shifted by ``axis.lo``), every strongly-see
+compare-count is a partial count over those columns summed over the
+axis, and the chain-view fd fill gathers la's columns first (its count
+runs over chain positions, and fd column j reads every creator's
+column of chain j's events); the incremental fill OR-s its ancestor
+flags over the axis.  Without one, nothing changes.
+
 Loops whose trip count JAX keeps on the device (``lax.while_loop`` with
 a traced bound) are Python loops here, with one ``.item()`` per trip to
 read the bound: see ``_rounds_frontier`` and ``_la_absorb``.
@@ -149,18 +161,39 @@ def _slot_sched(state_n0: torch.Tensor, cfg: DagConfig,
     return torch.where(sched >= 0, state_n0 + sched, cfg.e_cap)
 
 
-def la_step_math(cfg: DagConfig, sp, op, creator, seq, la, idx):
+def _own_cols(creator: torch.Tensor, cfg: DagConfig, axis):
+    """(column of ``la``/``fd`` each event's own seq goes to, whether it
+    is held here): the clamped creator, shifted by the shard's origin."""
+    own = torch.clamp(creator, 0, cfg.n - 1).long()
+    if axis is None:
+        return own, None
+    own = own - axis.lo
+    held = (own >= 0) & (own < axis.width)
+    return torch.clamp(own, 0, axis.width - 1), held
+
+
+def _put_own(t: torch.Tensor, rows, cols, vals, held) -> None:
+    """``t[rows, cols] = vals`` where ``held`` (all when None); a cell not
+    held gets its own value back (real rows are distinct; padding lanes
+    share the sentinel row, which the caller resets)."""
+    vals = vals.to(t.dtype)
+    if held is not None:
+        vals = torch.where(held, vals, t[rows, cols])
+    t[rows, cols] = vals
+
+
+def la_step_math(cfg: DagConfig, sp, op, creator, seq, la, idx, axis=None):
     """One topological level of last-ancestor fill, in place on ``la``:
     la[x] = max(la[sp(x)], la[op(x)]) with own slot := own seq.  ``idx``
     are device slots (sentinel e_cap for padding lanes, which all write
-    the same row there)."""
+    the same row there).  With ``axis``, ``la`` holds its columns."""
     idx = idx.long()
     spx = sanitize(sp[idx], cfg.e_cap).long()
     opx = sanitize(op[idx], cfg.e_cap).long()
     rows = torch.maximum(la[spx], la[opx])                   # [B, N]
-    own_col = torch.clamp(creator[idx], 0, cfg.n - 1).long()
-    rows[torch.arange(idx.shape[0], device=la.device), own_col] = \
-        seq[idx].to(rows.dtype)
+    own_col, held = _own_cols(creator[idx], cfg, axis)
+    _put_own(rows, torch.arange(idx.shape[0], device=la.device), own_col,
+             seq[idx], held)
     la[idx] = rows
     return la
 
@@ -180,12 +213,12 @@ def fd_step_math(cfg: DagConfig, sp, op, fd, idx):
 
 
 def _la_level_scan(state: DagState, cfg: DagConfig,
-                   slot_sched: torch.Tensor) -> DagState:
+                   slot_sched: torch.Tensor, axis=None) -> DagState:
     """Fill last-ancestor rows one topological level at a time."""
     la = state.la.clone()
     for idx in slot_sched:
         la_step_math(cfg, state.sp, state.op, state.creator, state.seq,
-                     la, idx)
+                     la, idx, axis)
     return state._replace(la=la)
 
 
@@ -198,36 +231,46 @@ def _batch_slots(state: DagState, cfg: DagConfig, b: EventBatch):
                              cfg.e_cap).long()
 
 
-def _fd_init_own(state: DagState, cfg: DagConfig, b: EventBatch) -> DagState:
+def _fd_init_own(state: DagState, cfg: DagConfig, b: EventBatch,
+                 axis=None) -> DagState:
     _, slots = _batch_slots(state, cfg, b)
-    own_col = torch.clamp(b.creator, 0, cfg.n - 1).long()
+    own_col, held = _own_cols(b.creator, cfg, axis)
     fd = state.fd.clone()
-    fd[slots, own_col] = b.seq.to(fd.dtype)
+    _put_own(fd, slots, own_col, b.seq, held)
     return state._replace(fd=fd)
 
 
-def _fd_incremental(state: DagState, cfg: DagConfig, b: EventBatch) -> DagState:
+def _fd_incremental(state: DagState, cfg: DagConfig, b: EventBatch,
+                    axis=None) -> DagState:
     """For each new event e (creator c, seq q): every ancestor y gains a
     first descendant by c at q unless it already has an earlier one,
     fd[y, c] = min(fd[y, c], q) over ancestors — an O(K·E) masked
     min-scatter.  Several events of one creator share a column and every
     padding lane writes column n, so the scatter reduces by min
-    (``scatter_reduce_``), never by last write."""
+    (``scatter_reduce_``), never by last write.  With ``axis`` each rank
+    tests the ancestors whose creator column it holds, the flags are
+    OR-ed over the axis, and it scatters into its own columns."""
     real, slots = _batch_slots(state, cfg, b)
     e1, n, cd = cfg.e_cap + 1, cfg.n, cfg.coord_dtype
 
     la_b = state.la[slots]                                        # [K, N]
-    cy = torch.clamp(state.creator, 0, n - 1).long()              # [E+1]
+    cy, held = _own_cols(state.creator, cfg, axis)                # [E+1]
     valid_y = (_iota(e1, cy) < state.n_events) & (state.seq >= 0)
     # anc[b, y]: y is an ancestor of batch event b
     anc = la_b[:, cy] >= state.seq[None, :]                       # [K, E+1]
+    if axis is not None:
+        anc = axis.max(anc & held[None, :])
     anc = anc & valid_y[None, :] & real[:, None]
 
     vals = torch.where(anc, b.seq[:, None].to(cd), cfg.fd_inf).to(cd)
-    c_dump = torch.where(real, b.creator, n).long()
-    upd = torch.full((e1, n + 1), cfg.fd_inf, dtype=cd, device=cy.device)
-    upd.scatter_reduce_(1, c_dump[None, :].expand(e1, -1), vals.T, "amin")
-    return state._replace(fd=torch.minimum(state.fd, upd[:, :n]))
+    own, own_held = _own_cols(b.creator, cfg, axis)
+    w = n if axis is None else axis.width
+    keep = real if own_held is None else real & own_held
+    c_dump = torch.where(keep, own if axis is not None else b.creator, w)
+    upd = torch.full((e1, w + 1), cfg.fd_inf, dtype=cd, device=cy.device)
+    upd.scatter_reduce_(1, c_dump.long()[None, :].expand(e1, -1), vals.T,
+                        "amin")
+    return state._replace(fd=torch.minimum(state.fd, upd[:, :w]))
 
 
 def _fd_reverse_scan(state: DagState, cfg: DagConfig,
@@ -243,27 +286,33 @@ def _fd_reverse_scan(state: DagState, cfg: DagConfig,
     return state._replace(fd=set_sentinel(fd, e_row, cfg.fd_inf))
 
 
-def _fd_full(state: DagState, cfg: DagConfig) -> DagState:
+def _fd_full(state: DagState, cfg: DagConfig, axis=None) -> DagState:
     """Full first-descendant recompute via the chain-view compare-count.
 
     fd[y, j] = smallest s with la[ce[j, s], creator[y]] >= seq[y].  The
     lookup V[j, s, c] = la[ce[j, s], c] is monotone non-decreasing in s,
     so the search is the count |{s : V[j, s, c] < t}|, computed in chunks
-    of t so the [N, S+1, N, Tc] compare stays near 256 MB."""
+    of t so the [N, S+1, N, Tc] compare stays near 256 MB.  With
+    ``axis`` this rank computes its own fd columns j, from la's columns
+    gathered over the axis."""
     n, s_cap = cfg.n, cfg.s_cap
     s_off = state.s_off[:n]                                      # [N]
     cnt_w = state.cnt[:n] - s_off                                # windowed lengths
     cej = state.ce[:n]                                           # [N, S+1]
     s_idx = _iota(s_cap + 1, cej)
+    la, jl = state.la, slice(0, n)
+    if axis is not None:
+        la, jl = axis.gather(la, 1), slice(axis.lo, axis.hi)
+    nj = jl.stop - jl.start
 
     # V[j, s, c] = la[chain_j[s], c], +INF past the chain tail
-    V = state.la[sanitize(cej, cfg.e_cap).long()].to(I32)        # [N, S+1, N]
+    V = la[sanitize(cej[jl], cfg.e_cap).long()].to(I32)         # [Nj, S+1, N]
     V = torch.where(
-        (s_idx[None, :] < cnt_w[:, None])[:, :, None], V, INT32_MAX
+        (s_idx[None, :] < cnt_w[jl, None])[:, :, None], V, INT32_MAX
     )
 
     t_total = s_cap + 1
-    chunk = max(1, min(t_total, 2 ** 28 // max(1, n * n * (s_cap + 1))))
+    chunk = max(1, min(t_total, 2 ** 28 // max(1, nj * n * (s_cap + 1))))
     counts = []
     for t0 in range(0, t_total, chunk):
         t_idx = t0 + _iota(chunk, cej)                           # [Tc]
@@ -271,9 +320,9 @@ def _fd_full(state: DagState, cfg: DagConfig) -> DagState:
         lt = V[:, :, :, None] < thr                              # [N,S+1,N,Tc]
         counts.append(lt.sum(dim=1, dtype=I32))                  # [N, N, Tc]
     out = torch.cat(counts, dim=2)[:, :, :t_total]
-    found = out < cnt_w[:, None, None]
+    found = out < cnt_w[jl, None, None]
     # fd values are absolute seqs: window-local count + chain j's offset
-    out = torch.where(found, out + s_off[:, None, None], cfg.fd_inf)
+    out = torch.where(found, out + s_off[jl, None, None], cfg.fd_inf)
 
     # scatter back to event rows: fd[ce[c, t], j] = out[j, c, t]; rows
     # past a chain's tail all dump into the sentinel row, reset below
@@ -287,7 +336,7 @@ def _fd_full(state: DagState, cfg: DagConfig) -> DagState:
 
 def _rounds_level_scan(state: DagState, cfg: DagConfig,
                        slot_sched: torch.Tensor,
-                       raw_sched: torch.Tensor) -> DagState:
+                       raw_sched: torch.Tensor, axis=None) -> DagState:
     """Assign round + witness per topological level (hashgraph.go:211-305):
 
         parent_round = max(round[sp], round[op])      (roots: 0)
@@ -335,6 +384,8 @@ def _rounds_level_scan(state: DagState, cfg: DagConfig,
         fdw = state.fd[sanitize(wsl, e_cap).long()]               # [B, N, N]
         ss_see = state.la[idx][:, None, :] >= fdw                 # [B, N, N]
         ss_cnt = count_bits(ss_see) if cfg.packed else ss_see.sum(-1)
+        if axis is not None:
+            ss_cnt = axis.count("rounds_level", ss_cnt, fdw.shape[-1])
         sm_x = state.sm[pr_row]                                   # [B]
         ss = (ss_cnt >= sm_x[:, None]) & (wsl >= 0)
         inc = ss.sum(-1) >= sm_x
@@ -431,10 +482,12 @@ def frontier_init(state: DagState, cfg: DagConfig):
 
 
 def frontier_step_math(state: DagState, cfg: DagConfig, r: int,
-                       pos: torch.Tensor, pos_table: torch.Tensor):
+                       pos: torch.Tensor, pos_table: torch.Tensor,
+                       axis=None):
     """One frontier-march round step: advance pos[j] — the seq of the
     first chain-j event with round >= r — to round r+1.  Writes row
-    min(r+1, r_cap) of ``pos_table`` in place.
+    min(r+1, r_cap) of ``pos_table`` in place.  With ``axis`` each
+    strongly-see count is a partial over la/fd's columns, summed.
 
     Returns (pos_next, pos_table, any_next)."""
     n, sm, s_cap, r_cap = cfg.n, cfg.super_majority, cfg.s_cap, cfg.r_cap
@@ -459,6 +512,8 @@ def frontier_step_math(state: DagState, cfg: DagConfig, r: int,
         mid = (lo + hi) >> 1
         lax_rows = state.la[sanitize(chain(mid), e_cap).long()]   # [N, N]
         ss_cnt = ss_counts_compare(lax_rows, fdw)
+        if axis is not None:
+            ss_cnt = axis.count("frontier", ss_cnt, fdw.shape[-1])
         ss = (ss_cnt >= sm) & valid_w[None, :]
         ok = ss.sum(-1) >= sm
         active = lo < hi
@@ -470,7 +525,10 @@ def frontier_step_math(state: DagState, cfg: DagConfig, r: int,
     # descent inheritance: fd rows of the per-chain first inc events
     e_star = chain(s_star)
     fde = state.fd[sanitize(torch.where(found, e_star, -1), e_cap).long()]
-    inherit = fde.min(dim=0).values.to(I32)                # [N] absolute
+    inherit = fde.min(dim=0).values                        # [N] absolute
+    if axis is not None:
+        inherit = axis.gather(inherit, 0)
+    inherit = inherit.to(I32)
     inherit = torch.where(inherit >= cfg.fd_inf, INT32_MAX, inherit - s_off)
     pos_next = torch.minimum(torch.where(found, s_star, INT32_MAX), inherit)
     pos_next = torch.maximum(pos_next, pos)  # monotone safety
@@ -522,7 +580,8 @@ def frontier_finalize(state: DagState, cfg: DagConfig,
     )
 
 
-def _rounds_frontier(state: DagState, cfg: DagConfig) -> DagState:
+def _rounds_frontier(state: DagState, cfg: DagConfig,
+                     axis=None) -> DagState:
     """Round assignment as a per-round witness-frontier march — O(actual
     rounds) sequential steps instead of O(levels).
 
@@ -539,17 +598,26 @@ def _rounds_frontier(state: DagState, cfg: DagConfig) -> DagState:
     r, alive = 0, True
     while alive and r < cfg.r_cap - 1:
         pos, pos_table, any_next = frontier_step_math(
-            state, cfg, r, pos, pos_table
+            state, cfg, r, pos, pos_table, axis
         )
         r += 1
         alive = bool(any_next.item())
     return frontier_finalize(state, cfg, pos_table)
 
 
+#: fd modes that run on column shards (``parallel/sharded.py``); the
+#: log-depth absorption reads every column of a row, so "absorb" does not
+SHARDED_FD_MODES = ("incremental", "full", "fast", "walk")
+
+
 def ingest_coords_impl(cfg: DagConfig, state: DagState, fd_mode: str,
-                       batch: EventBatch) -> DagState:
+                       batch: EventBatch, axis=None) -> DagState:
     """Phase 1 of ingest: write batch fields and fill the la/fd
-    coordinate tensors (everything before round assignment)."""
+    coordinate tensors (everything before round assignment).  With
+    ``axis`` (modes ``SHARDED_FD_MODES``), la/fd hold its columns."""
+    if axis is not None and fd_mode not in SHARDED_FD_MODES:
+        raise ValueError(f"fd mode {fd_mode!r} does not run on column "
+                         f"shards; use one of {SHARDED_FD_MODES}")
     state = _write_batch_fields(state, cfg, batch)
     slot_sched = _slot_sched(state.n_events - batch.k, cfg, batch.sched)
 
@@ -558,46 +626,48 @@ def ingest_coords_impl(cfg: DagConfig, state: DagState, fd_mode: str,
         # scan and compare-count applies (both are bit-identical)
         if fd_reverse_scan_wins(batch.sched.shape[0], cfg.e_cap):
             return _fd_reverse_scan(state, cfg, slot_sched)
-        return _fd_full(state, cfg)
+        return _fd_full(state, cfg, axis)
 
     if fd_mode == "walk":
         if not walk_supported(cfg.n, cfg.e_cap, cfg.s_cap):
             raise ValueError(f"walk mode does not support {cfg}")
+        c0, w = (0, cfg.n) if axis is None else (axis.lo, axis.width)
         la = la_walk(state.sp, state.op, state.creator, state.seq,
-                     state.n_events, cfg.e_cap, cfg.n)
+                     state.n_events, cfg.e_cap, cfg.n, c0, w)
         state = _fd_init_own(state._replace(la=la.to(cfg.coord_dtype)),
-                             cfg, batch)
+                             cfg, batch, axis)
         return _reset_coord_sentinels(fd_batch(state), cfg)
     if fd_mode == "absorb":
         state = _la_absorb(_la_init_direct(state, cfg, batch), cfg)
         state = _fd_init_own(state, cfg, batch)
         return _reset_coord_sentinels(_fd_full(state, cfg), cfg)
-    state = _la_level_scan(state, cfg, slot_sched)
-    state = _fd_init_own(state, cfg, batch)
+    state = _la_level_scan(state, cfg, slot_sched, axis)
+    state = _fd_init_own(state, cfg, batch, axis)
     if fd_mode == "incremental":
-        state = _fd_incremental(state, cfg, batch)
+        state = _fd_incremental(state, cfg, batch, axis)
     elif fd_mode == "fast":
         state = fd_batch(state)
     else:
-        state = _fd_full(state, cfg)
+        state = _fd_full(state, cfg, axis)
     return _reset_coord_sentinels(state, cfg)
 
 
 def ingest_rounds_impl(cfg: DagConfig, state: DagState, fd_mode: str,
-                       batch: EventBatch) -> DagState:
+                       batch: EventBatch, axis=None) -> DagState:
     """Phase 2 of ingest: round/witness assignment + sentinel reset."""
     if fd_mode in ("walk", "absorb", "fast"):
-        state = _rounds_frontier(state, cfg)
+        state = _rounds_frontier(state, cfg, axis)
     else:
         slot_sched = _slot_sched(state.n_events - batch.k, cfg, batch.sched)
-        state = _rounds_level_scan(state, cfg, slot_sched, batch.sched)
+        state = _rounds_level_scan(state, cfg, slot_sched, batch.sched,
+                                   axis)
     # the rounds phase rewrote the witness tables: refresh the packed
     # per-round bitplanes
     return repack_round_bits(cfg, _reset_round_sentinels(state, cfg))
 
 
 def ingest_impl(cfg: DagConfig, state: DagState, fd_mode: str,
-                batch: EventBatch) -> DagState:
+                batch: EventBatch, axis=None) -> DagState:
     """Ingest a topologically-ordered batch of events end to end.
 
     fd_mode (``PORTED_FD_MODES``; identical outputs where they overlap):
@@ -608,9 +678,12 @@ def ingest_impl(cfg: DagConfig, state: DagState, fd_mode: str,
     - 'walk'        — 'fast' with la by the one-pass walk kernel; gated
       by walk_supported().
     - 'absorb'      — 'fast' with la by log-depth self-absorption.
+
+    ``axis`` (a ``ColumnShard``): la/fd hold its columns (module
+    docstring).
     """
-    state = ingest_coords_impl(cfg, state, fd_mode, batch)
-    return ingest_rounds_impl(cfg, state, fd_mode, batch)
+    state = ingest_coords_impl(cfg, state, fd_mode, batch, axis)
+    return ingest_rounds_impl(cfg, state, fd_mode, batch, axis)
 
 
 def rescan_rounds_impl(cfg: DagConfig, state: DagState,

@@ -16,6 +16,12 @@ that sees x.
 
 Undecided rounds are skipped, not break points (the reference uses
 ``continue``, hashgraph.go:684-686).
+
+Column shards (``parallel/sharded.py``): with an ``axis``
+(``parallel.collectives.ColumnShard``) fd holds the columns
+``[axis.lo, axis.hi)``.  The see count of round received is a partial
+over them, summed over the axis; the median gathers the masked
+timestamp columns over the axis before its row sort.
 """
 
 from __future__ import annotations
@@ -48,7 +54,11 @@ def order_tables(cfg: DagConfig, state: DagState):
     return seqw, fam, decided, has_w, fam_cnt
 
 
-def order_rr_round(cfg, state, tables, und, i: int, rr):
+def _cols(axis, n: int) -> slice:
+    return slice(0, n) if axis is None else slice(axis.lo, axis.hi)
+
+
+def order_rr_round(cfg, state, tables, und, i: int, rr, axis=None):
     """One round's round-received update: events received in round
     i_abs = i + r_off when >1/2 of its famous witnesses see them."""
     seqw, fam, decided, has_w, fam_cnt = tables
@@ -57,8 +67,11 @@ def order_rr_round(cfg, state, tables, und, i: int, rr):
         decided[i] & has_w[i] & (i_abs <= state.max_round)
         & (i_abs <= state.lcr)
     )
-    sees = fam[i][None, :] & (state.fd <= seqw[i][None, :])      # [E+1, N]
+    xl = _cols(axis, cfg.n)
+    sees = fam[i][None, xl] & (state.fd <= seqw[i][None, xl])    # [E+1, N]
     c = sees.sum(dim=1)
+    if axis is not None:
+        c = axis.count("order_sees", c, sees.shape[1])
     cond = (
         und
         & (rr == -1)
@@ -76,9 +89,11 @@ def order_undetermined(cfg: DagConfig, state: DagState):
     return valid_e & (state.rr == -1)
 
 
-def decide_order_impl(cfg: DagConfig, state: DagState) -> DagState:
+def decide_order_impl(cfg: DagConfig, state: DagState,
+                      axis=None) -> DagState:
     """Round received for every undetermined event, then consensus
-    timestamps for the newly received ones."""
+    timestamps for the newly received ones.  ``axis``: fd holds its
+    columns (module docstring)."""
     n, R, e1 = cfg.n, cfg.r_cap, cfg.e_cap + 1
 
     tables = order_tables(cfg, state)
@@ -94,21 +109,22 @@ def decide_order_impl(cfg: DagConfig, state: DagState) -> DagState:
               & (i_abs <= state.lcr))
     rr = state.rr
     for i in torch.nonzero(active).flatten().tolist():
-        rr = order_rr_round(cfg, state, tables, und, i, rr)
+        rr = order_rr_round(cfg, state, tables, und, i, rr, axis)
     newly = und & (rr != -1)
 
     # consensus timestamps for newly-received events
     i_of = torch.clamp(rr - state.r_off, 0, R - 1).long()
 
     if e1 * n <= MEDIAN_CHUNK_THRESHOLD:
-        med = order_median_rows(cfg, state, seqw, fam, state.fd, i_of)
+        med = order_median_rows(cfg, state, seqw, fam, state.fd, i_of, axis)
     else:
         # large-E shapes: chunk the event axis so each block's [rows, N]
         # i64 working set (and its sort double) stays bounded
         chunk = max(1, MEDIAN_CHUNK_ELEMS // n)
         med = torch.cat([
             order_median_rows(cfg, state, seqw, fam,
-                              state.fd[e0:e0 + chunk], i_of[e0:e0 + chunk])
+                              state.fd[e0:e0 + chunk], i_of[e0:e0 + chunk],
+                              axis)
             for e0 in range(0, e1, chunk)
         ])
 
@@ -116,16 +132,18 @@ def decide_order_impl(cfg: DagConfig, state: DagState) -> DagState:
     return state._replace(rr=rr, cts=cts)
 
 
-def order_median_rows(cfg, state, seqw, fam, fd_rows, i_rows):
+def order_median_rows(cfg, state, seqw, fam, fd_rows, i_rows, axis=None):
     """Median consensus timestamp for a block of event rows.
 
     tv[x, j] = timestamp of chain j's event at seq fd[x, j] (the oldest
     self-ancestor of witness j to see x), gathered from the per-chain
     timestamp grid, masked to the famous witnesses that see x, sorted;
-    the median is element ``clip(cnt // 2, 0, n-1)``."""
+    the median is element ``clip(cnt // 2, 0, n-1)``.  With ``axis``,
+    ``fd_rows`` holds its columns j and tv is gathered before the sort."""
     n = cfg.n
     dev = fd_rows.device
-    cej = state.ce[:n]                                     # [N, S+1]
+    xl = _cols(axis, n)
+    cej = state.ce[xl]                                     # [N, S+1]
     ts_grid = state.ts[sanitize(cej, cfg.e_cap).long()]    # i64[N, S+1]
     if cfg.ts32:
         # rebase against the minimum LIVE timestamp: a constant shift
@@ -144,13 +162,16 @@ def order_median_rows(cfg, state, seqw, fam, fd_rows, i_rows):
         tmax = INT64_MAX
 
     rows = fd_rows.shape[0]
-    sees_rows = fam[i_rows] & (fd_rows <= seqw[i_rows])
+    sees_rows = fam[i_rows][:, xl] & (fd_rows <= seqw[i_rows][:, xl])
     # fd values are absolute seqs; the grid columns are window-local
-    fdc = torch.clamp(fd_rows - state.s_off[None, :n], 0, cfg.s_cap).long()
-    tv = ts_grid[torch.arange(n, device=dev)[None, :], fdc]
+    fdc = torch.clamp(fd_rows - state.s_off[None, xl], 0, cfg.s_cap).long()
+    tv = ts_grid[torch.arange(cej.shape[0], device=dev)[None, :], fdc]
     tv = torch.where(sees_rows, tv, tmax)
-    tv_sorted = torch.sort(tv, dim=1).values
     cnt_s = sees_rows.sum(dim=1)
+    if axis is not None:
+        tv = axis.gather(tv, 1)
+        cnt_s = axis.sum(cnt_s)
+    tv_sorted = torch.sort(tv, dim=1).values
     med = tv_sorted[torch.arange(rows, device=dev),
                     torch.clamp(cnt_s // 2, 0, n - 1)]
     if cfg.ts32:

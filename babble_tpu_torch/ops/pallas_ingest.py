@@ -18,6 +18,13 @@ int16 values (a seq of 32,768 or more wraps) and its own-column lane
 
 ``la_walk`` takes the plain twin only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
+
+A column range ``[c0, c0 + w)`` of the ``n`` columns (a rank's shard in
+``parallel/sharded.py``) fills only those columns: the columns are
+independent, so the kernel launches one block per column of the range
+and tests a slot's own lane against the block's global column; the
+result is ``[E+1, w]``, column ``c`` holding global column ``c0 + c``.
+The defaults (``0`` and ``n``) give the whole table.
 """
 
 from __future__ import annotations
@@ -56,10 +63,14 @@ def own_lane_and_value(creator: torch.Tensor, seq: torch.Tensor):
     return meta >> 16, ((meta & 0xFFFF) ^ 0x8000) - 0x8000
 
 
-def _check_args(sp, op, creator, seq, n_events, e_cap, n):
+def _check_args(sp, op, creator, seq, n_events, e_cap, n, c0=0, w=None):
     e1 = e_cap + 1
     if not 1 <= n <= _HALF:
         raise ValueError(f"la_walk: n={n} outside [1, {_HALF}]")
+    w = n if w is None else w
+    if not (0 <= c0 and 1 <= w and c0 + w <= n):
+        raise ValueError(f"la_walk: columns [{c0}, {c0 + w}) outside "
+                         f"[0, {n})")
     dev = sp.device
     for name, t in (("sp", sp), ("op", op), ("creator", creator),
                     ("seq", seq)):
@@ -84,18 +95,20 @@ def _check_args(sp, op, creator, seq, n_events, e_cap, n):
 
 def la_walk(sp: torch.Tensor, op: torch.Tensor, creator: torch.Tensor,
             seq: torch.Tensor, n_events: torch.Tensor, e_cap: int,
-            n: int) -> torch.Tensor:
-    """Fill la for the whole (topologically slot-ordered) DAG.
+            n: int, c0: int = 0, w: int = None) -> torch.Tensor:
+    """Fill la for the whole (topologically slot-ordered) DAG, columns
+    ``[c0, c0 + w)`` of ``n`` (all by default).
 
     Takes the state's ``[E+1]`` int32 index arrays and its 0-d int32
-    ``n_events``; returns a new i32 ``[E+1, N]`` table.  On CUDA tensors
+    ``n_events``; returns a new i32 ``[E+1, w]`` table.  On CUDA tensors
     this launches ``csrc/la_walk.cu`` on the current stream (and counts
     the launch in ``la_walk.launches``); on CPU tensors it runs
     ``la_walk_plain``."""
-    _check_args(sp, op, creator, seq, n_events, e_cap, n)
+    w = n if w is None else w
+    _check_args(sp, op, creator, seq, n_events, e_cap, n, c0, w)
     if sp.device.type == "cpu":
-        return la_walk_plain(sp, op, creator, seq, n_events, e_cap, n)
-    return _launch(sp, op, creator, seq, n_events, e_cap, n, None)
+        return la_walk_plain(sp, op, creator, seq, n_events, e_cap, n, c0, w)
+    return _launch(sp, op, creator, seq, n_events, e_cap, n, None, c0, w)
 
 
 la_walk.launches = 0
@@ -120,7 +133,7 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("la_walk")
     lib.la_walk_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
         + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
     lib.la_walk_launch.restype = ctypes.c_int
     lib.la_walk_dynamic_smem.argtypes = [ctypes.c_int]
@@ -144,8 +157,9 @@ def kernel_attributes(e_cap: int) -> dict:
                 dynamic_smem=lib.la_walk_dynamic_smem(e_cap + 1))
 
 
-def _launch(sp, op, creator, seq, n_events, e_cap, n, prof):
+def _launch(sp, op, creator, seq, n_events, e_cap, n, prof, c0=0, w=None):
     dev = sp.device
+    w = n if w is None else w
     if dev.type != "cuda":
         raise ValueError(f"la_walk: the kernel needs CUDA tensors, got {dev}")
     if not kernel_supports(n, e_cap):
@@ -157,13 +171,13 @@ def _launch(sp, op, creator, seq, n_events, e_cap, n, prof):
     fn = _kernel_lib().la_walk_launch
     e1 = e_cap + 1
     pitch = -(-e1 // 8) * 8
-    la = torch.empty((e1, n), dtype=I32, device=dev)
-    cols = torch.empty((n, pitch), dtype=torch.int16, device=dev)  # scratch
+    la = torch.empty((e1, w), dtype=I32, device=dev)
+    cols = torch.empty((w, pitch), dtype=torch.int16, device=dev)  # scratch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(sp.data_ptr(), op.data_ptr(), creator.data_ptr(),
-                seq.data_ptr(), n_events.data_ptr(), e1, n, la.data_ptr(),
-                cols.data_ptr(), pitch,
+                seq.data_ptr(), n_events.data_ptr(), e1, c0, w,
+                la.data_ptr(), cols.data_ptr(), pitch,
                 None if prof is None else prof.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"la_walk: kernel launch failed, cudaError_t {rc}")
@@ -173,25 +187,26 @@ def _launch(sp, op, creator, seq, n_events, e_cap, n, prof):
 
 def la_walk_plain(sp: torch.Tensor, op: torch.Tensor, creator: torch.Tensor,
                   seq: torch.Tensor, n_events, e_cap: int,
-                  n: int) -> torch.Tensor:
+                  n: int, c0: int = 0, w: int = None) -> torch.Tensor:
     """The same recurrence in plain torch: a Python loop over the slots
     with one row max and one own-column set each, on the device of the
-    inputs.  A parent outside ``[0, E+1)``, or not yet written, is
-    missing (-1); the own column and its value are the TPU kernel's
-    (``own_lane_and_value``)."""
+    inputs, over columns ``[c0, c0 + w)`` (all by default).  A parent
+    outside ``[0, E+1)``, or not yet written, is missing (-1); the own
+    column and its value are the TPU kernel's (``own_lane_and_value``)."""
     e1 = e_cap + 1
+    w = n if w is None else w
     dev = sp.device
     ne = min(max(int(n_events), 0), e1)
-    la = torch.full((e1, n), -1, dtype=I32, device=dev)
-    missing = torch.full((n,), -1, dtype=I32, device=dev)
+    la = torch.full((e1, w), -1, dtype=I32, device=dev)
+    missing = torch.full((w,), -1, dtype=I32, device=dev)
     lane, value = own_lane_and_value(creator[:ne], seq[:ne])
     sp_l, op_l = sp[:ne].tolist(), op[:ne].tolist()
-    lane_l, value_l = lane.tolist(), value.tolist()
+    lane_l, value_l = (lane - c0).tolist(), value.tolist()
     for x in range(ne):
         s, o, c = sp_l[x], op_l[x], lane_l[x]
         row = torch.maximum(la[s] if 0 <= s < e1 else missing,
                             la[o] if 0 <= o < e1 else missing)
-        if 0 <= c < n:
+        if 0 <= c < w:
             row[c] = value_l[x]
         la[x] = row
     return la

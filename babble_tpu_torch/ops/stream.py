@@ -32,7 +32,11 @@ against the fused pipeline by ``tests/test_torch_stream.py``):
 
 Entry points run on ``device`` ("cuda" unless the caller asks for the
 CPU).  ``stacked=True`` holds la/fd as one [C, E+1, w] tensor on that
-device; the mesh-sharded form (JAX ``mesh=``) is ROADMAP item 9.
+device.  ``mesh=`` (a ``parallel.mesh.Mesh``; every rank of it runs the
+same stream on the same DAG) shards the stacked blocks over the mesh's
+"p" axis, C/p to a rank on the mesh's device, and turns the cross-block
+reductions into collectives over that axis (``ops/wide.py`` module
+docstring); the window's state stays replicated.
 """
 
 from __future__ import annotations
@@ -56,7 +60,6 @@ from .state import (
     init_state,
 )
 from .wide import (
-    NOT_PORTED_MESH,
     MarchCarry,
     _init_blocks,
     _init_blocks_stacked,
@@ -84,23 +87,28 @@ class WideStream:
                  mesh=None, registry: Optional[Registry] = None,
                  device="cuda"):
         """``stacked=True`` holds la/fd as one [C, E+1, w] tensor driven
-        by the stacked programs.  ``mesh`` raises: the sharded window is
-        ROADMAP item 9."""
-        if mesh is not None:
-            raise NotImplementedError(NOT_PORTED_MESH)
+        by the stacked programs; with ``mesh`` (an axis named "p") the
+        block axis is sharded over the mesh's ranks and the cross-block
+        reductions become collectives (module docstring).  A mesh
+        stream runs on the mesh's device."""
         self.cfg = cfg
         self.C = n_blocks or block_count(cfg)
         self.round_margin = round_margin
         self.seq_window = seq_window
         self.record_ordered = record_ordered
         self.mesh = mesh
+        self.shard = None
+        if mesh is not None:
+            device = mesh.device
         self.device = torch.device(device)
         self.state: DagState = init_state(cfg, include_coords=False,
                                           device=self.device)
-        if stacked:
+        if stacked or mesh is not None:
             self.la_blocks, self.fd_blocks = _init_blocks_stacked(
-                cfg, self.C, device=self.device
+                cfg, self.C, mesh, device=self.device
             )
+            if mesh is not None:
+                self.shard = mesh.block_shard(self.C)
         else:
             self.la_blocks, self.fd_blocks = _init_blocks(
                 cfg, self.C, device=self.device
@@ -159,7 +167,7 @@ class WideStream:
             )
         self.state, self.la_blocks, self.fd_blocks = run_wide_coords(
             self.cfg, self.state, batch, self.la_blocks, self.fd_blocks,
-            self.C, fd_slot_sched=fd_slot_sched,
+            self.C, fd_slot_sched=fd_slot_sched, shard=self.shard,
         )
         _sync(self.state.sp)
         self._tick("coords", t0)
@@ -182,7 +190,7 @@ class WideStream:
             )
         self.state = run_wide_rounds(
             cfg, self.state, self.la_blocks, self.fd_blocks, C,
-            self.stats, carry=self.carry,
+            self.stats, carry=self.carry, shard=self.shard,
         )
         max_round, r_off = (int(v) for v in torch.stack(
             [self.state.max_round, self.state.r_off]).tolist())
@@ -198,7 +206,7 @@ class WideStream:
         lcr_prev = self.lcr
         self.state = run_wide_fame(
             cfg, self.state, self.la_blocks, self.fd_blocks, C,
-            self.stats, complete=final,
+            self.stats, complete=final, shard=self.shard,
         )
         lcr_now = int(self.state.lcr.item())
         self._tick("fame", t0)
@@ -207,6 +215,7 @@ class WideStream:
         self.state = run_wide_order(
             cfg, self.state, self.la_blocks, self.fd_blocks, C,
             self.stats, r_lo_abs=lcr_prev + 1, r_hi_abs=lcr_now,
+            shard=self.shard,
         )
         self.lcr = lcr_now
         self.stats["max_round"] = max_round
@@ -290,6 +299,8 @@ class WideStream:
         )
         if _is_stacked(self.la_blocks):
             ds_stack = ds_pad.reshape(C, w)
+            if self.shard is not None:
+                ds_stack = ds_stack[self.shard.lo:self.shard.hi]
             self.la_blocks = j["compact_stacked"](
                 self.la_blocks, k, ds_stack, False
             )
@@ -375,6 +386,15 @@ def slice_batch(dag, a: int, b: int, e_off: int,
     )
 
 
+def _past(stream: WideStream, late: bool) -> bool:
+    """Whether any rank of the stream's mesh is past its deadline (this
+    rank's own reading without a mesh)."""
+    if stream.mesh is None:
+        return late
+    flag = torch.tensor(int(late), dtype=I32, device=stream.device)
+    return bool(stream.mesh.world.max(flag).item())
+
+
 def stream_consensus(
     cfg: DagConfig,
     dag,
@@ -395,7 +415,10 @@ def stream_consensus(
     ingest -> consensus -> compact per mega-batch of ~batch_events.
 
     ``deadline_s`` (wall seconds from the call): stop cleanly after the
-    current batch when exceeded, marking ``stats["truncated"]``."""
+    current batch when exceeded, marking ``stats["truncated"]``.
+    ``mesh``: the sharded stacked form (``WideStream``); every rank of
+    the mesh calls this with the same arguments, and a deadline stops
+    every rank once any rank's clock passes it."""
     stream = WideStream(cfg, n_blocks=n_blocks,
                         round_margin=round_margin, seq_window=seq_window,
                         record_ordered=record_ordered, stacked=stacked,
@@ -419,7 +442,7 @@ def stream_consensus(
     bi = 0
     while a < E:
         if (deadline_s is not None and bi > 0
-                and time.perf_counter() - t_start > deadline_s):
+                and _past(stream, time.perf_counter() - t_start > deadline_s)):
             stream.stats["truncated"] = True
             stream.stats["events_ingested"] = a
             if log is not None:

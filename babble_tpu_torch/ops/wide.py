@@ -49,8 +49,20 @@ clamps (``sanitize``, ``_col_gather``'s clip on the ragged last block).
 The JAX package's TPU-only forms (the one-hot partial count, the
 select-accumulate median loop) are not taken: the port runs the forms
 JAX runs off the TPU.  The stacked forms hold the blocks as one
-[C, E+1, w] tensor on one device; the mesh-sharded form is ROADMAP
-Queue 1 item 9.
+[C, E+1, w] tensor on one device.
+
+Mesh-sharded stacked form (``ops/stream.py WideStream(mesh=)``, JAX's
+``P("p", None, None)`` block layout): each rank of the mesh's "p" axis
+holds C/p consecutive blocks ``[C/p, E+1, w]``, described by the
+``shard`` the mesh builds (``Mesh.block_shard``: blocks ``[lo, hi)``
+and the reducers over the "p" axis), which the ``run_wide_*``
+functions take and hand to the stacked twins at call time.  The
+per-block work stays local, with ``offs`` holding each local block's
+global column origin; the cross-block reductions of the stacked twins
+go over the axis: ``ss_stacked`` and
+``sees_stacked`` sum their local partials, ``votes0_stacked``,
+``inherit_stacked`` and ``med_tv_stacked``'s timestamp columns gather
+along the blocks, its counts sum and its ``bad`` rows take the max.
 """
 
 from __future__ import annotations
@@ -90,12 +102,6 @@ BLOCK_TARGET_BYTES = 1 << 30
 #: int32 temporaries at the 10k config to a few hundred MB)
 COMPACT_ROWS = 1 << 16
 
-NOT_PORTED_MESH = (
-    "the mesh-sharded wide stream is not ported yet (ROADMAP.md Queue 1, "
-    "item 9: multi-GPU)"
-)
-
-
 def wide_wins(cfg: DagConfig) -> bool:
     """Same working-set bound as ops.fame.fame_mode."""
     return fame_ops.fame_mode(cfg) == "block"
@@ -125,7 +131,9 @@ def _sync(t: torch.Tensor) -> None:
 @functools.lru_cache(maxsize=8)
 def _jits(cfg: DagConfig, C: int):
     """Per-(config, block-count) step programs (JAX: jitted; here plain
-    functions over torch tensors)."""
+    functions over torch tensors).  The stacked twins that reduce across
+    blocks take the rank's ``shard`` of a mesh-sharded stacked form at
+    call time (module docstring; None on one device)."""
     n, e_cap, s_cap, r_cap = cfg.n, cfg.e_cap, cfg.s_cap, cfg.r_cap
     w = _block_width(cfg, C)
     sm = cfg.super_majority
@@ -534,37 +542,48 @@ def _jits(cfg: DagConfig, C: int):
     def gather_stacked(blocks, idx):
         return blocks[:, sanitize(idx, e_cap).long()]
 
-    def ss_stacked(law, fdw):
+    def _over_blocks(t, dim, shard):
+        # local blocks' columns -> every block's, in block order
+        return t if shard is None else shard.gather(t, dim)
+
+    def ss_stacked(law, fdw, shard=None):
         z = torch.zeros((law.shape[1], fdw.shape[1]), dtype=I32,
                         device=law.device)
-        return ss_counts_acc(law, fdw, z)
+        acc = ss_counts_acc(law, fdw, z)
+        if shard is None:
+            return acc
+        return shard.count("ss_count", acc, law.shape[0] * law.shape[2])
 
-    def votes0_stacked(law, seqw_i, offs, valid_1, valid_i):
+    def votes0_stacked(law, seqw_i, offs, valid_1, valid_i, shard=None):
         v = torch.cat([votes0_block(law[c], seqw_i, offs[c], valid_1,
                                     valid_i) for c in range(law.shape[0])],
                       dim=1)
-        return v[:, :n]
+        return _over_blocks(v, 1, shard)[:, :n]
 
-    def inherit_stacked(fde):
-        return torch.cat([inherit_block(fde[c])
-                          for c in range(fde.shape[0])])[:n]
+    def inherit_stacked(fde, shard=None):
+        return _over_blocks(torch.cat([inherit_block(fde[c])
+                                       for c in range(fde.shape[0])]), 0,
+                            shard)[:n]
 
-    def sees_stacked(FD, seqw_i, fam_i, offs):
+    def sees_stacked(FD, seqw_i, fam_i, offs, shard=None):
         acc = torch.zeros((e_cap + 1,), dtype=I32, device=FD.device)
         for c in range(FD.shape[0]):
             acc = sees_partial_block(FD[c], seqw_i, fam_i, offs[c], acc)
-        return acc
+        return acc if shard is None else shard.sum(acc)
 
     def med_tv_stacked(state, FD_rows, i_rows, seqw, fam, offs, tmin,
-                       scale, rel32):
+                       scale, rel32, shard=None):
         outs = [med_tv_block(state, FD_rows[c], i_rows, seqw, fam, offs[c],
                              tmin, scale, rel32)
                 for c in range(FD_rows.shape[0])]
-        tvf = torch.cat([o[0] for o in outs], dim=1)[:, :n]
+        tvf = _over_blocks(torch.cat([o[0] for o in outs], dim=1), 1,
+                           shard)[:, :n]
         cnt = outs[0][1]
         for o in outs[1:]:
             cnt = cnt + o[1]
         bad = torch.stack([o[2] for o in outs]).any(dim=0)
+        if shard is not None:
+            cnt, bad = shard.sum(cnt), shard.max(bad)
         return tvf, cnt, bad
 
     def slice_stacked(A, e0, rows):
@@ -629,16 +648,22 @@ def _init_blocks(cfg: DagConfig, C: int, device="cuda"):
 
 
 def _init_blocks_stacked(cfg: DagConfig, C: int, mesh=None, device="cuda"):
-    """Stacked block tensors [C, E+1, w] on one device.  The JAX
-    package lays them over a device mesh when ``mesh`` is given; that
-    form waits for ROADMAP item 9."""
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
+    """Stacked block tensors [C, E+1, w] on one device; with ``mesh``
+    (an axis named "p") this rank's C/p blocks ``[C/p, E+1, w]``, as
+    JAX's ``P("p", None, None)`` places them, on the mesh's device."""
     w = _block_width(cfg, C)
     e1 = cfg.e_cap + 1
     cd = cfg.coord_dtype
-    la = torch.full((C, e1, w), -1, dtype=cd, device=device)
-    fd = torch.full((C, e1, w), cfg.fd_inf, dtype=cd, device=device)
+    c_loc = C
+    if mesh is not None:
+        if C % mesh.shape["p"]:
+            raise ValueError(
+                f"block count C={C} must be a multiple of mesh "
+                f"'p'={mesh.shape['p']}"
+            )
+        c_loc, device = C // mesh.shape["p"], mesh.device
+    la = torch.full((c_loc, e1, w), -1, dtype=cd, device=device)
+    fd = torch.full((c_loc, e1, w), cfg.fd_inf, dtype=cd, device=device)
     return la, fd
 
 
@@ -646,8 +671,11 @@ def _is_stacked(blocks) -> bool:
     return not isinstance(blocks, (tuple, list))
 
 
-def _block_offs(C: int, w: int):
-    return [c * w for c in range(C)]
+def _block_offs(C: int, w: int, shard=None):
+    """Global column origin of each block held here (all C blocks, or
+    the shard's)."""
+    blocks = range(C) if shard is None else range(shard.lo, shard.hi)
+    return [c * w for c in blocks]
 
 
 def _gather_all(j, C, blocks, idx):
@@ -658,10 +686,10 @@ def _gather_all(j, C, blocks, idx):
     return [j["gather_rows"](blocks[c], idx) for c in range(C)]
 
 
-def _ss_all(j, C, w, law, fdw, n):
+def _ss_all(j, C, w, law, fdw, n, shard=None):
     """Full strongly-see counts from per-block gathered rows."""
     if _is_stacked(law):
-        return j["ss_stacked"](law, fdw)
+        return j["ss_stacked"](law, fdw, shard)
     return _blocked_ss(j, C, w, law, fdw, n)
 
 
@@ -687,7 +715,8 @@ def _assemble_blocks(cfg: DagConfig, blocks) -> torch.Tensor:
 
 
 def run_wide_coords(cfg: DagConfig, state: DagState, batch: EventBatch,
-                    la_blocks, fd_blocks, C: int, fd_slot_sched=None):
+                    la_blocks, fd_blocks, C: int, fd_slot_sched=None,
+                    shard=None):
     """Blocked coordinate fill: batch write + per-block la/fd scans
     (window-local values; exact on fresh states where offsets are 0).
     The blocks are updated in place and returned.
@@ -697,7 +726,8 @@ def run_wide_coords(cfg: DagConfig, state: DagState, batch: EventBatch,
     scans only the batch; fd rows keep gaining first-descendants until
     every chain has one, and min is idempotent, so re-sweeping all live
     levels reaches the exact transitive closure.  Default (one-shot
-    batch): the batch schedule is the whole window."""
+    batch): the batch schedule is the whole window.  ``shard``: the
+    rank's blocks of a mesh-sharded stacked form (module docstring)."""
     j = _jits(cfg, C)
     state = j["write_batch"](state, batch)
     base = state.n_events - batch.k
@@ -709,7 +739,7 @@ def run_wide_coords(cfg: DagConfig, state: DagState, batch: EventBatch,
     sp, op, creator, seq = state.sp, state.op, state.creator, state.seq
     s_off = state.s_off
     if _is_stacked(la_blocks):
-        offs = _block_offs(C, w)
+        offs = _block_offs(C, w, shard)
         la_blocks = j["la_scan_stacked"](sp, op, creator, seq, s_off,
                                          la_blocks, slot_sched, offs)
         fd_blocks = j["fd_scan_stacked"](sp, op, creator, seq, s_off,
@@ -748,7 +778,8 @@ def _blocked_ss(j, C, w, la_rows_by_block, fd_rows_by_block, n):
 
 def run_wide_rounds(cfg: DagConfig, state: DagState, la_blocks,
                     fd_blocks, C: int, stats=None,
-                    carry: Optional[MarchCarry] = None) -> DagState:
+                    carry: Optional[MarchCarry] = None,
+                    shard=None) -> DagState:
     """Blocked host-driven frontier march (twin of the fused
     ``_rounds_frontier``).
 
@@ -756,7 +787,8 @@ def run_wide_rounds(cfg: DagConfig, state: DagState, la_blocks,
     positions were all found at the last march are frozen (appended
     events cannot change them: an event's round criterion only counts
     ancestor witnesses), and open rows bisect only over the appended
-    suffix.  The carry is updated for the next resume."""
+    suffix.  The carry is updated for the next resume.  ``shard``: as in
+    ``run_wide_coords``."""
     j = _jits(cfg, C)
     w = j["width"]
     n, s_cap, r_cap = cfg.n, cfg.s_cap, cfg.r_cap
@@ -789,7 +821,7 @@ def run_wide_rounds(cfg: DagConfig, state: DagState, la_blocks,
         for _ in range(bisect_iters):
             mid, xs = j["bisect_candidates"](state, lo, hi)
             law = _gather_all(j, C, la_blocks, xs)
-            cnt_ab = _ss_all(j, C, w, law, fdw, n)
+            cnt_ab = _ss_all(j, C, w, law, fdw, n, shard)
             lo, hi = j["bisect_update"](cnt_ab, valid_w, lo, hi, mid, cnt)
         if stats is not None:
             stats["ss_tallies"] = stats.get("ss_tallies", 0) + bisect_iters
@@ -801,7 +833,7 @@ def run_wide_rounds(cfg: DagConfig, state: DagState, la_blocks,
         e_star = torch.where(found, e_star, -1)
         if _is_stacked(fd_blocks):
             inherit = j["inherit_stacked"](
-                j["gather_stacked"](fd_blocks, e_star)
+                j["gather_stacked"](fd_blocks, e_star), shard
             )
         else:
             inh = [
@@ -827,7 +859,8 @@ def run_wide_rounds(cfg: DagConfig, state: DagState, la_blocks,
 
 
 def run_wide_fame(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
-                  C: int, stats=None, complete: bool = True) -> DagState:
+                  C: int, stats=None, complete: bool = True,
+                  shard=None) -> DagState:
     """Blocked host-driven fame voting (twin of the fused
     ``decide_fame_block_impl``).  Round indices into the witness/fame
     tables are window rows (i_abs - r_off); witness seqs are window-
@@ -836,11 +869,12 @@ def run_wide_fame(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
     ``complete=False`` (mid-stream): decisions are gated to rounds
     whose witness set is final (every chain head's round >= i), so a
     late witness can never reopen a decided round and the stream's
-    output is the whole-DAG batch's whatever the batch boundaries."""
+    output is the whole-DAG batch's whatever the batch boundaries.
+    ``shard``: as in ``run_wide_coords``."""
     j = _jits(cfg, C)
     w = j["width"]
     n = cfg.n
-    offs = _block_offs(C, w) if _is_stacked(la_blocks) else None
+    offs = _block_offs(C, w, shard) if _is_stacked(la_blocks) else None
     lcr, max_round, r_off = (int(v) for v in torch.stack(
         [state.lcr, state.max_round, state.r_off]).tolist())
     hi = max_round
@@ -859,7 +893,7 @@ def run_wide_fame(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
         if _is_stacked(la_blocks):
             votes = j["votes0_stacked"](
                 j["gather_stacked"](la_blocks, ws_1), seqw_i,
-                offs, valid_1, valid_i,
+                offs, valid_1, valid_i, shard,
             )
         else:
             votes = torch.cat(
@@ -880,7 +914,7 @@ def run_wide_fame(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
             ws_p, valid_p = j["fame_wits"](state, i + d - 1)
             law = _gather_all(j, C, la_blocks, ws_j)
             fdw = _gather_all(j, C, fd_blocks, ws_p)
-            cnt_ab = _ss_all(j, C, w, law, fdw, n)
+            cnt_ab = _ss_all(j, C, w, law, fdw, n, shard)
             mb_j = state.mbit[sanitize(ws_j, cfg.e_cap).long()]
             votes, famous_i, und = j["fame_tally"](
                 cnt_ab, valid_j, valid_p, valid_i, votes, famous_i, mb_j, d,
@@ -904,7 +938,8 @@ def run_wide_fame(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
 def run_wide_order(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
                    C: int, stats=None,
                    r_lo_abs: Optional[int] = None,
-                   r_hi_abs: Optional[int] = None) -> DagState:
+                   r_hi_abs: Optional[int] = None,
+                   shard=None) -> DagState:
     """Blocked host-driven round-received + median timestamps (twin of
     the fused ``decide_order_impl``).
 
@@ -912,7 +947,8 @@ def run_wide_order(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
     absolute rounds decided since the last call (windowed streaming):
     later-arriving events can never be received in an earlier-decided
     round.  Default: all window rows (the batch path).  The median pass
-    streams only the slot range holding newly-received rows."""
+    streams only the slot range holding newly-received rows.  ``shard``:
+    as in ``run_wide_coords``."""
     j = _jits(cfg, C)
     w = j["width"]
     n, e1 = cfg.n, cfg.e_cap + 1
@@ -925,11 +961,11 @@ def run_wide_order(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
 
     rr = state.rr
     stacked = _is_stacked(fd_blocks)
-    offs = _block_offs(C, w) if stacked else None
+    offs = _block_offs(C, w, shard) if stacked else None
     dev = rr.device
     for i in range(lo_r, hi_r):
         if stacked:
-            c = j["sees_stacked"](fd_blocks, seqw[i], fam[i], offs)
+            c = j["sees_stacked"](fd_blocks, seqw[i], fam[i], offs, shard)
         else:
             c = torch.zeros((e1,), dtype=I32, device=dev)
             for blk in range(C):
@@ -970,6 +1006,7 @@ def run_wide_order(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
             fd_rows = j["slice_stacked"](fd_blocks, e0, chunk)
             tv_full, cnt_s, bad_rows = j["med_tv_stacked"](
                 state, fd_rows, i_rows, seqw, fam, offs, tmin, scale, rel32,
+                shard,
             )
             bad_total = bad_total + (bad_rows & new_rows).sum(dtype=I32)
         else:

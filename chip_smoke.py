@@ -23,7 +23,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    version on the same card inputs, at the main path's shapes (the
    64 x 65,536 slice DAG), on one small DAG, at the largest size the
    walk gate admits (64 x 94,661) and on seqs that wrap int16; exact
-   equality (the outputs are integers).  Kernel time by CUDA events:
+   equality (the outputs are integers).  la_walk on column ranges (a
+   rank's shard in phase 16: p = 2's halves, an odd range, the last
+   column) equals those columns of the whole table, and the plain twin
+   on the range; the half-width launch is timed at the slice.  Kernel time by CUDA events:
    ``ms`` warm (mean of 10 back-to-back launches, the first one's host
    enqueue inside the span, as in earlier versions of this script),
    ``ms_device`` the same with the host enqueued ahead behind a device
@@ -261,9 +264,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    the JAX package's summaries (``WIDE_EXPECT``, made on the CPU by
    ``JAX_PLATFORMS=cpu python -m tests.test_torch_wide``).  (c)
    BASELINE config 5 (``random_gossip_arrays(10_000, 1_000_000,
-   seed=7)``): bench's run_10k config pinned to refuse (its window
-   overflows before lcr reaches 1; in a window that holds the stream
-   int8 refuses the in-window depth), then the stream with int16
+   seed=7)``): bench's run_10k config refuses (its window overflows
+   before lcr reaches 1; in a window that holds the stream int8 refuses
+   the in-window depth; the script no longer runs either on the card,
+   to make room for phase 16), so the stream runs with int16
    coordinates in a 1,000,000-event window (``WIDE10K_RUN``), every
    event ingested, evicted > 0, bad rows 0, held to ``WIDE10K_EXPECT``
    (this script's first reading); it prints events ordered, lcr,
@@ -309,7 +313,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    into a temporary directory: 4 datadirs with a key each, one shared
    ``peers.json`` against the hosts' addresses, and executable deploy
    scripts.  It prints both wall times (the card's host).
-15. prewarm — the AOT prewarm (``ops/aot.py``), run last.  Each part
+15. prewarm — the AOT prewarm (``ops/aot.py``), run before phase 16.  Each part
    runs fresh child processes on one new cache root, cold (empty) and
    then warm (the root the cold child left).  (a) fused: bench.py's
    stream child on the port (``prewarm_child_fused``: the DAG of
@@ -339,6 +343,32 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    ``/metrics`` after node 3's last restart, and a fresh child
    (``prewarm_child_manifest``) prewarms from the fleet's manifest as
    a restarting node does, its first key and the rest timed apart.
+16. mesh — the multi-device layer (``babble_tpu_torch/parallel/``), run
+   last, on the one card.  Four programs, run twice (first and warm)
+   in (a) and once in (b), for time: the sharded step at config 3 (phase 13(d)'s DAG and config,
+   mode "fast"), the sharded walk step at config 2 (phase 4's), the
+   sharded fork step on phase 11(b)'s 1024 x 100,000 batch and
+   ``stream_consensus(mesh=)`` at config 3 (``MESH_STREAM``: a rolling
+   window, 4 stacked blocks).  (a) one NCCL rank (``make_mesh(1)`` in a
+   real process group of one): each program equals the single-device
+   port (``consensus_step`` on every consensus field, ``fork_pipeline``
+   on every ``ForkOut`` field, the stacked stream's ordered events, lcr
+   and evictions, 61,900 ordered); the walk launches ``la_walk``, the
+   fork step ``fork_ss``, the stream ``ss_count``.  (b) gloo groups of 2
+   and 4 rank processes (``MESH_GROUPS``: meshes (1, 2) and (2, 2),
+   every rank on cuda:0, spawned by ``parallel/dryrun.py
+   spawn_ranks``): every rank's output digest of each program equals
+   (a)'s, and each kernel launches on its sharded path on every rank.
+   On both ranks of the 2-rank group (p = 2) the fork step's and the
+   stream's run keep copies of the kernels' inputs and results, which
+   are then held exactly to the plain twins at the shapes the shard
+   gives them (``MeshKernelCapture``: fork_ss once a distinct shape,
+   on det and the branch rows cut to the rank's creators; ss_count on
+   every call, over the rank's 2 of 4 blocks).
+   Per rank and program it prints the walls, the kernel launches, the
+   columns each compare-count saw (N/p, B/p, or C/p blocks of w), the
+   collectives' calls and bytes and the peak memory; the ranks share
+   one card, so the walls are not a multi-GPU speed.
 
 It prints the card line, then one JSON line describing every kernel,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -346,6 +376,7 @@ then ``{"ok": true, "device": {...}}`` as the last line.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import logging
@@ -785,8 +816,7 @@ WIDE_EXPECT = {
 # any platform: lcr first reaches 1 at 640,000 events, past its 620,000
 # window, and int8 cannot hold the in-window chain depth (127 at 800,000
 # events once the window is large enough; coord8 needs s_cap < 120).
-# Phase 12(c) pins both refusals, then runs the nearest config that
-# orders the whole stream: int16 coordinates, s_cap max_chain + 3 (as
+# Phase 12(c) runs the nearest config that orders the whole stream: int16 coordinates, s_cap max_chain + 3 (as
 # bench.py's run_wide sizes it) and a window that holds the stream,
 # every other knob bench's.  No platform holds an ordering for it, so
 # WIDE10K_EXPECT is this script's own first reading on the card.
@@ -796,7 +826,6 @@ WIDE10K = dict(
     run=dict(batch_events=160_000, round_margin=0, seq_window=48,
              compact_min=4096),
 )
-WIDE10K_INT8_WINDOW = 1_000_000
 # (a) bench's config-5 block for ss_count: 10,000 rows a side, 1,667 int8
 # columns (6 blocks of the 10,000-wide, 620,000-event window)
 WIDE_INT8_BLOCK = (10_000, 1667)
@@ -832,6 +861,17 @@ WIDE_ENGINE_EXPECT = {
 REF_FULL = dict(n=1024, e=100_000, seed=7, s_cap_min=64, r_cap=16,
                 repeats=3)
 REF_EXPECT = {"slice": 63340, "full": 61900}
+
+# phase 16: the multi-device layer (parallel/) on the one card.  (a) one
+# NCCL rank; (b) gloo groups of MESH_GROUPS (ranks, mesh shape), every
+# rank on cuda:0 (p = 2 in both).  The stream is config 3's DAG through
+# a rolling window in 4 stacked blocks (C/p blocks a rank).
+MESH_GROUPS = ((2, (1, 2)), (4, (2, 2)))
+#: the group whose ranks also hold fork_ss and ss_count to their plain
+#: twins on the shard (``mesh_kernel_check``)
+MESH_CHECKED = 2
+MESH_STREAM = dict(batch_events=25_000, n_blocks=4, round_margin=0,
+                   seq_window=16, compact_min=4096)
 # (f): the engine on the card held to OracleHashgraph on README.md's
 # engine flow (gated, rolling windows)
 REF_ORACLE = dict(n=8, e=600, seed=17, every=64,
@@ -1015,7 +1055,44 @@ def phase_kernel(dev) -> dict:
                              >= nops / PEAK_OPS_S else "operations"),
                 "library_ms": None,
             }
+    walk_ranges(dev)
     return row
+
+
+def walk_ranges(dev) -> None:
+    """la_walk on a column range (a rank's shard, phase 16): exact against
+    the same columns of the whole table (held to the plain twin above)
+    at the slice, including p = 2's halves, and against the plain twin
+    on the range at the small and wrapped shapes; the half-width launch
+    timed at the slice."""
+    import torch
+
+    from babble_tpu_torch.ops.pallas_ingest import la_walk, la_walk_plain
+
+    for name, shape in (("small", SMALL), ("slice", SLICE), ("wrap", WRAP)):
+        if "seq_base" in shape:
+            args = synthetic_inputs(shape, dev)
+        else:
+            args = walk_inputs(shape["n"], shape["e"], shape["seed"], dev)
+        n = args[6]
+        whole = la_walk(*args)
+        ranges = ((0, n // 2), (n // 2, n - n // 2), (n // 3, n // 4 or 1),
+                  (n - 1, 1))
+        for c0, w in ranges:
+            got = la_walk(*args, c0, w)
+            if not torch.equal(got, whole[:, c0:c0 + w]):
+                raise AssertionError(f"la_walk columns [{c0}, {c0 + w}) != "
+                                     f"the whole table's ({name})")
+            if name != "slice" and not torch.equal(
+                    got, la_walk_plain(*args, c0, w)):
+                raise AssertionError(f"la_walk columns [{c0}, {c0 + w}) != "
+                                     f"la_walk_plain's ({name})")
+        line = f"[kernel] la_walk {name} column ranges {ranges}: exact"
+        if name == "slice":
+            half = cuda_ms(lambda: la_walk(*args, 0, n // 2), reps=10)
+            line += (f"; columns [0, {n // 2}) {half:.4f} ms warm (CUDA "
+                     f"events, mean of 10)")
+        print(line, flush=True)
 
 
 def kernel_resources() -> None:
@@ -4258,38 +4335,18 @@ def phase_wide(dev, card: str, base3) -> dict:
                              f"and la_walk {la_walk.launches} times")
     del mid
 
-    # (c) BASELINE config 5 as bench.py's run_10k builds it (tuple path):
-    # its window overflows, and int8 in a window that holds the stream
-    # refuses the in-window depth; then the nearest config that runs
+    # (c) BASELINE config 5: the nearest config to bench.py's run_10k
+    # that orders the stream (bench's own refuses on every platform, by
+    # a window overflow and by the in-window chain depth; those refusal
+    # paths are pinned on the CPU by tests/test_torch_stream.py and
+    # tests/test_torch_wide_engine.py; their runs at config 5 on the card
+    # are left out to make room for phase 16)
     k = WIDE10K
     t0 = time.perf_counter()
     dag = random_gossip_arrays(k["n"], k["e"], seed=k["seed"])
     print(f"[wide] (c) host build {time.perf_counter() - t0:.1f} s; "
           f"max_chain {dag.max_chain}, levels {dag.n_levels}", flush=True)
     la_walk.launches = 0
-    for name, cfg_kw, want in (
-            ("bench's config", k["cfg"], "overflows the window"),
-            (f"int8 in a {WIDE10K_INT8_WINDOW:,}-event window",
-             dict(k["cfg"], e_cap=WIDE10K_INT8_WINDOW),
-             "in-window chain depth")):
-        t0 = time.perf_counter()
-        seen = []
-        try:
-            stream_consensus(DagConfig(**cfg_kw), dag, device=dev,
-                             record_ordered=False, log=seen.append,
-                             **k["run"])
-        except ValueError as e:
-            refused = str(e)
-        else:
-            raise AssertionError(f"config 5 ({name}) ordered the whole "
-                                 f"stream: {seen[-1:]}")
-        if want not in refused:
-            raise AssertionError(f"config 5 ({name}) refused otherwise: "
-                                 f"{refused}")
-        print(f"[wide] (c) config 5, {name}: refused after "
-              f"{len(seen)} batches ({seen[-1] if seen else ''}): "
-              f"{refused}; {time.perf_counter() - t0:.1f} s", flush=True)
-        torch.cuda.empty_cache()
     cfg = DagConfig(**dict(k["cfg"], **WIDE10K_RUN,
                            s_cap=dag.max_chain + 3))
     torch.cuda.reset_peak_memory_stats()
@@ -5060,6 +5117,420 @@ def phase_prewarm(card: str, device: str = "cuda",
           f"{card}", flush=True)
 
 
+# ----------------------------------------------------------------------
+# phase 16: the multi-device layer (babble_tpu_torch/parallel/)
+
+
+def mesh_inputs(root: str) -> None:
+    """Phase 11(b)'s fork batch (BYZ_FULL) written once as host arrays
+    into ``root``, for every rank to load (the numpy build is the slow
+    part; the gossip DAGs come from the C++ generator in milliseconds)."""
+    import numpy as np
+
+    from babble_tpu_torch.sim.arrays import random_byzantine_fork_arrays
+
+    full = {k: v for k, v in BYZ_FULL.items() if k not in ("n", "e")}
+    cfg, arrays = random_byzantine_fork_arrays(BYZ_FULL["n"], BYZ_FULL["e"],
+                                               **full)
+    np.savez(os.path.join(root, "fork.npz"), **arrays)
+    with open(os.path.join(root, "fork_cfg.json"), "w") as f:
+        json.dump(list(cfg), f)
+
+
+def tensors_digest(named) -> str:
+    """SHA-256 over ``(name, tensor)`` pairs, each in its dtype's bytes."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for name, t in named:
+        a = t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+        h.update(name.encode() + str(a.dtype).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def mesh_programs(mesh, dev, root: str, runs: int = 2,
+                  check: bool = False) -> tuple:
+    """Phase 16's four programs on this rank of ``mesh`` (module
+    docstring), each run ``runs`` times from fresh inputs: the sharded
+    step at config 3, the walk step at config 2, the fork step at
+    config 4 and the stream at config 3.  Returns (report, outputs,
+    checks): per program its digest, walls, launches, the columns its
+    compare-counts saw, its collectives and peak memory; the last run's
+    gathered outputs; and, with ``check``, ``MeshKernelCapture``'s
+    record (else {}).  The walls, launches and collectives cover the
+    program alone: the gather of its outputs over the mesh and their
+    digest come after.  With ``check`` the fork step's and the stream's
+    runs carry the capture hooks (device copies of the compared calls'
+    inputs and results); the comparisons come after."""
+    import torch
+
+    from babble_tpu_torch import (
+        DagConfig, batch_from_arrays, random_gossip_arrays,
+    )
+    from babble_tpu_torch.ops import forks as F
+    from babble_tpu_torch.ops.pallas_ingest import la_walk
+    from babble_tpu_torch.ops.ss import ss_counts_acc
+    from babble_tpu_torch.ops.state import consensus_digest
+    from babble_tpu_torch.ops.stream import stream_consensus
+    from babble_tpu_torch.parallel import collectives
+    from babble_tpu_torch.parallel.sharded import (
+        gather_fork_out, gather_state, make_sharded_fork_step,
+        make_sharded_step, pad_cfg_for_mesh, pad_fork_for_mesh,
+        sharded_init_state,
+    )
+    import numpy as np
+
+    g3 = random_gossip_arrays(REF_FULL["n"], REF_FULL["e"],
+                              seed=REF_FULL["seed"])
+    g2 = random_gossip_arrays(SLICE["n"], SLICE["e"], seed=SLICE["seed"])
+    with open(os.path.join(root, "fork_cfg.json")) as f:
+        fcfg = F.ForkConfig(*json.load(f))
+    fbatch = F.fork_batch_from_numpy(
+        dict(np.load(os.path.join(root, "fork.npz"))), dev)
+    fcfg, fbatch = pad_fork_for_mesh(fcfg, fbatch, mesh)
+
+    # each program: (run -> (result at rest, shard), collect -> (whole
+    # output, digest))
+    def step_program(dag, mode, s_cap, r_cap):
+        cfg = pad_cfg_for_mesh(DagConfig(n=dag.n, e_cap=dag.n_events,
+                                         s_cap=s_cap, r_cap=r_cap), mesh)
+        batch = batch_from_arrays(dag, device=dev)
+
+        def run():
+            step = make_sharded_step(cfg, mesh, mode)
+            return step(sharded_init_state(cfg, mesh), batch), step.shard
+
+        def collect(res):
+            out = gather_state(res, mesh)
+            return out, consensus_digest(out, dag.n_events)
+        return run, collect
+
+    capture = MeshKernelCapture() if check else None
+
+    def fork_run():
+        step = make_sharded_fork_step(
+            fcfg, mesh, ss=capture.fork_ss if check else None)
+        return step(fbatch), step.shard
+
+    def fork_collect(res):
+        out = gather_fork_out(res, mesh)
+        ne = BYZ_FULL["e"]
+        return out, tensors_digest(
+            (f, t[:ne] if t.dim() and t.shape[0] == fcfg.e_cap + 1 else t)
+            for f, t in zip(out._fields, out))
+
+    scfg = DagConfig(n=REF_FULL["n"], e_cap=REF_FULL["e"],
+                     s_cap=g3.max_chain + 3, r_cap=REF_FULL["r_cap"])
+
+    def stream_run():
+        with (capture.capturing() if check else contextlib.nullcontext()):
+            st = stream_consensus(scfg, g3, mesh=mesh, **MESH_STREAM)
+        return st, st.shard
+
+    def stream_collect(st):
+        keys = sorted(st.ordered)
+        h = hashlib.sha256(json.dumps(
+            [[k, *st.ordered[k]] for k in keys]
+            + [st.lcr, st.evicted, st.e_off]).encode())
+        return st, h.hexdigest()
+
+    programs = {
+        "step": step_program(g3, "fast",
+                             max(REF_FULL["s_cap_min"], g3.max_chain + 1),
+                             REF_FULL["r_cap"]),
+        "walk": step_program(g2, "walk", g2.max_chain + 1, SLICE["r_cap"]),
+        "fork": (fork_run, fork_collect),
+        "stream": (stream_run, stream_collect),
+    }
+    report, outputs = {}, {}
+    for name, (run, collect) in programs.items():
+        walls, peak = [], 0
+        for _ in range(runs):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            la_walk.launches = F.ss_counts.launches = 0
+            ss_counts_acc.launches = 0
+            collectives.reset_stats()
+            t0 = time.perf_counter()
+            res, shard = run()
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated(dev))
+            launches = dict(la_walk=la_walk.launches,
+                            fork_ss=F.ss_counts.launches,
+                            ss_count=ss_counts_acc.launches)
+            sent = collectives.stats()
+        out, digest = collect(res)
+        report[name] = dict(
+            digest=digest, runs=runs, first_ms=walls[0], warm_ms=walls[-1],
+            launches=launches, columns=shard.widths(), collectives=sent,
+            peak_gib=peak / 2 ** 30,
+        )
+        outputs[name] = out
+        del out, res
+        torch.cuda.empty_cache()
+    return report, outputs, capture.verify() if check else {}
+
+
+class MeshKernelCapture:
+    """fork_ss and ss_count held to their plain twins at the shapes a
+    sharded run hands them.  ``fork_ss`` is the fork step's ``ss=``
+    hook and ``ss_count`` stands in for ``ops.wide``'s
+    ``ss_counts_acc`` during the stream (``capturing``); each calls the
+    kernel and keeps device copies of its inputs and result: the first
+    fork_ss call of each distinct shape (the plain twin takes seconds a
+    call at this size), every ss_count call.  ``verify``, after the
+    run and outside its wall, compares each kept result exactly with
+    ``ss_counts_plain`` (the int32 rows, det cut to the rank's
+    creators) or ``ss_counts_compare`` over the rank's blocks, raises
+    on the first difference, and returns per kernel the calls, the
+    calls compared, the shapes compared and the columns each saw."""
+
+    def __init__(self):
+        self.kept = {"fork_ss": [], "ss_count": []}
+        self.rec = {kern: dict(calls=0, compared=0, shapes=[], columns=[])
+                    for kern in self.kept}
+
+    def _note(self, kern, key, cols, every=False) -> bool:
+        r = self.rec[kern]
+        r["calls"] += 1
+        if key in r["shapes"] and not every:
+            return False
+        if key not in r["shapes"]:
+            r["shapes"].append(key)
+        if cols not in r["columns"]:
+            r["columns"].append(cols)
+        return True
+
+    def fork_ss(self, la_x, det_x, helper_w, k, window=None):
+        from babble_tpu_torch.ops import forks as F
+
+        got = F.ss_counts(la_x, det_x, helper_w, k, window=window)
+        key = [list(la_x.shape), list(helper_w.shape), window is None]
+        if self._note("fork_ss", key, int(la_x.shape[-1])):
+            self.kept["fork_ss"].append((key, k, la_x.clone(), det_x.clone(),
+                                         helper_w.clone(), got.clone()))
+        return got
+
+    def ss_count(self, rows_a, rows_b, acc):
+        before = acc.clone()
+        got = self._kernel_acc(rows_a, rows_b, acc)
+        key = [list(rows_a.shape), list(rows_b.shape)]
+        self._note("ss_count", key, int(rows_a.shape[0] * rows_a.shape[-1]),
+                   every=True)
+        self.kept["ss_count"].append((key, rows_a.clone(), rows_b.clone(),
+                                      before, got.clone()))
+        return got
+
+    @contextlib.contextmanager
+    def capturing(self):
+        from babble_tpu_torch.ops import wide as W
+
+        self._kernel_acc = W.ss_counts_acc
+        W.ss_counts_acc = self.ss_count
+        try:
+            yield self
+        finally:
+            W.ss_counts_acc = self._kernel_acc
+
+    def verify(self) -> dict:
+        import torch
+
+        from babble_tpu_torch.ops import forks as F
+        from babble_tpu_torch.ops.ss import ss_counts_compare
+
+        for key, k, la_x, det_x, helper_w, got in self.kept["fork_ss"]:
+            want = F.ss_counts_plain(la_x, det_x, helper_w, k)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"fork_ss on the rank's creators != ss_counts_plain at "
+                    f"{key}: {int((got != want).sum())} counts differ")
+        for key, rows_a, rows_b, want, got in self.kept["ss_count"]:
+            for c in range(rows_a.shape[0]):
+                want += ss_counts_compare(rows_a[c], rows_b[c])
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"ss_count on the rank's blocks != ss_counts_compare at "
+                    f"{key}: {int((got != want).sum())} counts differ")
+        for kern, kept in self.kept.items():
+            self.rec[kern]["compared"] = len(kept)
+            if not kept:
+                raise AssertionError(f"{kern} was never called in its "
+                                     f"captured sharded run: {self.rec[kern]}")
+        self.kept = {kern: [] for kern in self.kept}
+        torch.cuda.empty_cache()
+        return self.rec
+
+
+def mesh_worker(rank: int, world: int, dev, shape, root: str) -> None:
+    """Phase 16(b)'s rank: the four programs on a ``shape`` mesh of the
+    gloo group; rank 0 writes every rank's report to ``root``."""
+    import torch.distributed as dist
+
+    from babble_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(world, shape=tuple(shape), device=dev)
+    report, outputs, checks = mesh_programs(mesh, dev, root, runs=1,
+                                            check=world == MESH_CHECKED)
+    del outputs
+    every = [None] * world
+    dist.all_gather_object(every, dict(report=report, checks=checks))
+    if rank == 0:
+        with open(os.path.join(root, f"group_{world}.json"), "w") as f:
+            json.dump(every, f)
+
+
+def mesh_line(tag: str, rank: int, name: str, r: dict) -> str:
+    walls = (f"first {r['first_ms']:.1f} ms, warm {r['warm_ms']:.1f} ms"
+             if r["runs"] > 1 else f"one run {r['first_ms']:.1f} ms")
+    return (f"[mesh] {tag} rank {rank} {name}: {walls}; launches "
+            f"{r['launches']}; "
+            f"compare-count columns {r['columns']}; collectives "
+            f"{r['collectives']}; peak {r['peak_gib']:.2f} GiB")
+
+
+#: the kernel each program's run must launch (the honest step at
+#: n = 1,024 takes mode "fast": no hand-written kernel on its path)
+MESH_KERNEL = {"step": None, "walk": "la_walk", "fork": "fork_ss",
+               "stream": "ss_count"}
+
+
+def check_mesh_report(tag: str, report: dict, want: dict) -> None:
+    for name, r in report.items():
+        if r["digest"] != want[name]:
+            raise AssertionError(f"{tag} {name}: output digest "
+                                 f"{r['digest']} != (a)'s {want[name]}")
+        kernel = MESH_KERNEL[name]
+        if kernel and r["launches"][kernel] < 1:
+            raise AssertionError(f"{tag} {name}: {kernel} never launched "
+                                 f"on its sharded path: {r['launches']}")
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """Phase 16 (module docstring).  Returns each kernel's launches in
+    (a)'s run of its program."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from babble_tpu_torch import (
+        DagConfig, assert_consensus_parity, batch_from_arrays,
+        consensus_step, init_state, random_gossip_arrays,
+    )
+    from babble_tpu_torch.ops import forks as F
+    from babble_tpu_torch.ops.stream import stream_consensus
+    from babble_tpu_torch.parallel.dryrun import spawn_ranks
+    from babble_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="mesh16_")
+    t0 = time.perf_counter()
+    mesh_inputs(root)
+    print(f"[mesh] inputs (phase 11(b)'s fork arrays) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (a) one NCCL rank on the card, a real process group
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        one = torch.ones(4, device=dev)
+        dist.all_reduce(one)
+        mesh = make_mesh(1, device=dev)
+        print(f"[mesh] (a) NCCL {torch.cuda.nccl.version()} world 1: "
+              f"{mesh}; all_reduce {one.tolist()}", flush=True)
+        report, outputs, _ = mesh_programs(mesh, dev, root)
+    finally:
+        dist.destroy_process_group()
+    for name, r in report.items():
+        print(mesh_line("(a) nccl 1", 0, name, r) + f"; {card}", flush=True)
+
+    # (a)'s outputs against the single-device port
+    g3 = random_gossip_arrays(REF_FULL["n"], REF_FULL["e"],
+                              seed=REF_FULL["seed"])
+    cfg3 = DagConfig(n=REF_FULL["n"], e_cap=REF_FULL["e"],
+                     s_cap=max(REF_FULL["s_cap_min"], g3.max_chain + 1),
+                     r_cap=REF_FULL["r_cap"])
+    ref = consensus_step(cfg3, "fast", init_state(cfg3, device=dev),
+                         batch_from_arrays(g3, device=dev))
+    assert_consensus_parity(ref, outputs["step"], cfg3.e_cap, "(a) step")
+    del ref
+    g2 = random_gossip_arrays(SLICE["n"], SLICE["e"], seed=SLICE["seed"])
+    cfg2 = DagConfig(n=SLICE["n"], e_cap=SLICE["e"],
+                     s_cap=g2.max_chain + 1, r_cap=SLICE["r_cap"])
+    ref = consensus_step(cfg2, "walk", init_state(cfg2, device=dev),
+                         batch_from_arrays(g2, device=dev))
+    assert_consensus_parity(ref, outputs["walk"], cfg2.e_cap, "(a) walk")
+    del ref
+    with open(os.path.join(root, "fork_cfg.json")) as f:
+        fcfg = F.ForkConfig(*json.load(f))
+    fref = F.fork_pipeline(fcfg, F.fork_batch_from_numpy(
+        dict(np.load(os.path.join(root, "fork.npz"))), dev))
+    for name, a in zip(fref._fields, fref):
+        if not torch.equal(a, getattr(outputs["fork"], name)):
+            raise AssertionError(f"(a) fork step != fork_pipeline on {name}")
+    del fref
+    scfg = DagConfig(n=REF_FULL["n"], e_cap=REF_FULL["e"],
+                     s_cap=g3.max_chain + 3, r_cap=REF_FULL["r_cap"])
+    sref = stream_consensus(scfg, g3, stacked=True, device=dev,
+                            **MESH_STREAM)
+    st = outputs["stream"]
+    if (st.ordered, st.lcr, st.evicted) != (sref.ordered, sref.lcr,
+                                            sref.evicted) \
+            or st.ordered_total != REF_EXPECT["full"]:
+        raise AssertionError(f"(a) mesh stream != the stacked stream: "
+                             f"{st.ordered_total} / {sref.ordered_total} "
+                             f"ordered, lcr {st.lcr} / {sref.lcr}")
+    del outputs, sref, st
+    torch.cuda.empty_cache()
+    want = {name: r["digest"] for name, r in report.items()}
+    check_mesh_report("(a)", report, want)
+    print(f"[mesh] (a) == the single-device port: step at config 3 "
+          f"(every consensus field), walk at config 2, fork at config 4 "
+          f"(every ForkOut field), stream at config 3 (ordered "
+          f"{REF_EXPECT['full']:,}, the C++ baseline's count)", flush=True)
+
+    # (b) gloo groups, every rank on this card
+    for ranks, shape in MESH_GROUPS:
+        t0 = time.perf_counter()
+        spawn_ranks(mesh_worker, ranks, "gloo", "cuda", list(shape), root)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(root, f"group_{ranks}.json")) as f:
+            every = json.load(f)
+        tag = f"(b) gloo {ranks} mesh {shape}"
+        for rank, got in enumerate(every):
+            rep = got["report"]
+            check_mesh_report(f"{tag} rank {rank}", rep, want)
+            for name, r in rep.items():
+                print(mesh_line(tag, rank, name, r), flush=True)
+            if ranks == MESH_CHECKED:
+                if set(got["checks"]) != {"fork_ss", "ss_count"}:
+                    raise AssertionError(f"{tag} rank {rank}: the kernel "
+                                         f"check did not run: {got['checks']}")
+                for kern, r in got["checks"].items():
+                    print(f"[mesh] {tag} rank {rank} {kern} == its plain "
+                          f"twin on the shard, exact: {r['compared']} of "
+                          f"{r['calls']} calls compared, shapes "
+                          f"{r['shapes']}, columns {r['columns']}",
+                          flush=True)
+        print(f"[mesh] {tag}: every rank == (a) on all four programs; "
+              f"group wall {wall:.1f} s (spawn, inputs, one run each); "
+              f"the {ranks} ranks share one card, so these walls are not "
+              f"a multi-GPU speed; {card}", flush=True)
+    print(f"[mesh] phase 16 {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {MESH_KERNEL[n]: r["launches"][MESH_KERNEL[n]]
+            for n, r in report.items() if MESH_KERNEL[n]}
+
+
 def main() -> int:
     import torch
 
@@ -5139,6 +5610,10 @@ def main() -> int:
     byz_row = phase_byzantine(dev, card)
     wide_row = phase_wide(dev, card, base3)
     phase_prewarm(card, fleet_root=fleet_root)
+    mesh = phase_mesh(dev, card)
+    for r, kernel in ((row, "la_walk"), (byz_row, "fork_ss"),
+                      (wide_row, "ss_count")):
+        r["mesh_launches"] = mesh[kernel]
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [row, byz_row, wide_row]}), flush=True)

@@ -8,9 +8,10 @@ round trip between two of its TCP transports, a chaos scenario through
 its runner (the disk-rot mini: crash, checkpoint and WAL rot,
 recovery), its C++ generator and baseline (built by its own loader),
 its straight-line oracle, its AOT prewarm (a fused stream's manifest
-prewarming a twin, and the fork and wide warm-ups), and its host tools
+prewarming a twin, and the fork and wide warm-ups), its host tools
 (``lint`` over the whole port, ``fleet conf`` and a ``testnet health``
-sweep), with all four blocked."""
+sweep) and its sharded step on a 2-rank gloo group (each rank a child
+interpreter with the same blocks), with all four blocked."""
 
 import ast
 import os
@@ -325,6 +326,52 @@ sock.close()
 health = cli("testnet", "health", "--n", "2", "--base_port",
              str(base - 3000), rc=1)
 assert health.count("<unreachable") == 2, health
+# the sharded step on a 2-rank gloo group: each rank its own interpreter
+# with the same four blocked, joined through bootstrap's torchrun vars
+RANK = '''
+import sys
+BLOCKED = ("jax", "jaxlib", "babble_tpu", "msgpack", "cryptography")
+for name in BLOCKED:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+import babble_tpu_torch as bt
+from babble_tpu_torch.parallel import (
+    bootstrap, make_mesh, make_sharded_step, pad_cfg_for_mesh,
+    sharded_init_state)
+from babble_tpu_torch.parallel.sharded import gather_state
+bootstrap(backend="gloo")
+mesh = make_mesh(2, shape=(1, 2), device="cpu")
+dag = bt.random_gossip_arrays(6, 300, seed=3)
+cfg = pad_cfg_for_mesh(bt.DagConfig(n=6, e_cap=300,
+                                    s_cap=max(64, dag.max_chain + 1),
+                                    r_cap=32), mesh)
+batch = bt.batch_from_arrays(dag, device="cpu")
+step = make_sharded_step(cfg, mesh, "fast")
+out = gather_state(step(sharded_init_state(cfg, mesh), batch), mesh)
+ref = bt.consensus_step(cfg, "fast", bt.init_state(cfg, device="cpu"), batch)
+bt.assert_consensus_parity(ref, out, 300, "2 ranks")
+assert int(out.lcr) > 0 and step.shard.widths()["frontier"] == [3]
+blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
+           and sys.modules[m] is not None]
+assert not blocked, blocked
+torch.distributed.destroy_process_group()
+print("rank ok")
+'''
+import subprocess
+sock = socket.socket()
+sock.bind(("127.0.0.1", 0))
+port = sock.getsockname()[1]
+sock.close()
+env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+           WORLD_SIZE="2")
+ranks = [subprocess.Popen([sys.executable, "-c", RANK],
+                          env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True)
+         for r in range(2)]
+for proc in ranks:
+    out, err = proc.communicate(timeout=120)
+    assert proc.returncode == 0 and out.strip().endswith("rank ok"), err[-2000:]
 blocked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
            and sys.modules[m] is not None]
 assert not blocked, blocked

@@ -97,6 +97,23 @@ def test_la_walk_kernel_matches_plain_synthetic(n, e, kw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,c0,w", [(64, 0, 32), (64, 32, 32), (64, 21, 7),
+                                    (8, 7, 1), (3, 1, 2)])
+def test_la_walk_kernel_column_range_matches_plain(n, c0, w):
+    """A rank's column range (the sharded walk step): columns
+    [c0, c0 + w) of the table, as the plain twin gives them on the range,
+    wrapped seqs included."""
+    _need_card()
+    args = _synthetic_inputs(n, 3000, 9, torch.device("cuda"),
+                             seq_base=WRAPPED[:n] if n <= len(WRAPPED)
+                             else 0)
+    got = la_walk(*args, c0, w)
+    assert got.shape == (3001, w)
+    assert torch.equal(got, la_walk_plain(*args, c0, w))
+    assert torch.equal(got, la_walk(*args)[:, c0:c0 + w])
+
+
+@pytest.mark.gpu
 def test_la_walk_kernel_limits():
     _need_card()
     attrs = kernel_attributes(GATE_E_CAP)

@@ -191,7 +191,8 @@ def test_unported_modes_raise(monkeypatch):
     monkeypatch.setattr(fame, "decide_fame_block_impl",
                         lambda *a: calls.append(a) or "block")
     assert fame.decide_fame_auto_impl(wide, None, False, True) == "block"
-    assert calls == [(wide, None, False, True)]
+    # the last argument: no column-shard axis (one device)
+    assert calls == [(wide, None, False, True, None)]
 
 
 def test_walk_rejects_unsupported_config():

@@ -7,8 +7,12 @@ slot -> round received, consensus timestamp), lcr, the evictions, every
 state tensor, the blocked la/fd, the march carry and the stats are
 compared exactly, with compaction and window rolls engaged, at C > 1
 and at int8, int16 and int32 coordinates.  The stacked form runs on one
-device; its mesh-sharded form is a refusal naming ROADMAP item 9.
+device, and its mesh-sharded form (``mesh=``) on two gloo rank
+processes (``tests/torch_parallel_ranks.py``) against JAX's sharded
+stream.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -118,22 +122,46 @@ def test_stream_refuses_window_overflow_as_jax_does():
     assert str(perr.value) == str(jerr.value)
 
 
-def test_stream_stacked_equals_jax_and_mesh_names_item_9():
+def test_stream_stacked_equals_jax_and_mesh_sharded_equals_jax(tmp_path):
     """The stacked block form (one [C, E+1, w] tensor on one device)
-    equals JAX's stacked stream; the mesh-sharded form raises naming
-    ROADMAP item 9."""
+    equals JAX's stacked stream; the mesh-sharded form (``mesh=`` over a
+    (1, 2) mesh of gloo ranks, 2 blocks a rank) equals JAX's sharded
+    stream (mesh (1, 4), one block a device) on everything the stacked
+    form is held to, its blocks gathered over "p"."""
+    from babble_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+    from tests.torch_parallel_ranks import launch
+
     cfg = dict(n=24, e_cap=1400, s_cap=110, r_cap=16)
     run = dict(batch_events=350, n_blocks=4, round_margin=0,
                seq_window=16, compact_min=64, stacked=True)
     js, ps = _run_both(24, 2800, 13, cfg, **run)
     assert ps.evicted > 0 and ps.la_blocks.shape == (4, 1401, 6)
     _assert_streams_equal(js, ps, "stacked")
-    for make in (lambda: WideStream(DagConfig(**cfg), mesh=object(),
-                                    device=CPU),
-                 lambda: W._init_blocks_stacked(DagConfig(**cfg), 4,
-                                                mesh=object(), device=CPU)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make()
+
+    run.pop("stacked")
+    jm = jstream(JConfig(**cfg), jarrays(24, 2800, seed=13),
+                 mesh=jmake_mesh(4, shape=(1, 4)), **run)
+    launch(str(tmp_path), "stream")
+    got = np.load(tmp_path / "stream2.npz")
+    ordered = {int(k): (int(r), int(c)) for k, r, c in got["ordered"]}
+    assert ordered == jm.ordered == js.ordered
+    assert got["scalars"].tolist() == [jm.ordered_total, jm.lcr, jm.evicted,
+                                       jm.e_off]
+    assert str(got["stats"]) == json.dumps(jm.stats, sort_keys=True)
+    assert got["timings"].tolist() == sorted(jm.timings)
+    for f in STATE:
+        a, b = np.asarray(getattr(jm.state, f)), got[f"state_{f}"]
+        assert a.dtype == b.dtype and (a == b).all(), f"mesh: {f}"
+    for name in ("la_blocks", "fd_blocks"):
+        a, b = _blocks(getattr(jm, name)), got[name]
+        assert a.dtype == b.dtype and (a == b).all(), f"mesh: {name}"
+    assert (np.asarray(jm.carry.pos_table) == got["pos_table"]).all()
+    assert (np.asarray(jm.carry.cnt_prev) == got["cnt_prev"]).all()
+    assert (jm._rr_seen == got["rr_seen"]).all()
+    assert got["local_blocks"].tolist() == [2, 1401, 6]
+    widths = [json.loads(w) for w in got["widths"]]
+    assert widths == [{"ss_count": [12]}] * 2
 
 
 def test_stream_deadline_and_registry_stages():
