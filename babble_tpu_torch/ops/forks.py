@@ -75,6 +75,7 @@ import torch
 from ..core.dag import clamp_eff_ts
 from ..core.event import Event
 from ..membership.quorum import supermajority
+from ..obs.spans import count, host_read, stage
 from .state import (
     I32, INT32_MAX, INT64_MAX, bucket, fd_reverse_scan_wins, sanitize,
     set_sentinel,
@@ -152,11 +153,14 @@ class ForkOut(NamedTuple):
 
 def fork_batch_from_numpy(arrays: dict, device="cuda") -> ForkBatch:
     """A ``ForkBatch`` on ``device`` from host numpy arrays, each copied
-    (the tensors never share memory with the arrays)."""
-    return ForkBatch(**{
-        name: torch.tensor(np.asarray(arrays[name]), device=device)
-        for name in ForkBatch._fields
-    })
+    (the tensors never share memory with the arrays; a copy from
+    pageable host memory waits for the device's queue)."""
+    with stage("fork.upload"):
+        return ForkBatch(**{
+            name: host_read(torch.tensor, np.asarray(arrays[name]),
+                            device=device)
+            for name in ForkBatch._fields
+        })
 
 
 # ----------------------------------------------------------------------
@@ -962,7 +966,7 @@ def _ss_total(ss, axis, site: str, la_x, det_x, helper_w, k, window):
 
 def _rounds_closure(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
                     det: torch.Tensor, helper: torch.Tensor, ss=ss_counts,
-                    stats: Optional[dict] = None, axis=None):
+                    axis=None):
     """Round assignment as a per-round closure iteration (the JAX
     package's ``_rounds_closure``; see its docstring for the argument).
 
@@ -970,7 +974,9 @@ def _rounds_closure(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
     with no round below r; S = unassigned events that strongly see
     >= sm candidate creators (or whose parents already sit above r); the
     events with round > r are the descent closure of S within the
-    unassigned set; every other unassigned event gets round r."""
+    unassigned set; every other unassigned event gets round r.  Counts
+    ``rounds`` and ``passes`` (of the descent closure) on the open
+    stage."""
     k, B, sm, r_cap = cfg.k, cfg.b, cfg.super_majority, cfg.r_cap
     e1 = cfg.e_cap + 1
     s_cap = cfg.s_cap
@@ -1024,7 +1030,7 @@ def _rounds_closure(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
         while True:
             D2 = (S | (unassigned & (D[spx] | D[opx]))) & valid_e
             passes += 1
-            changed = bool((D2 != D).any())
+            changed = bool(host_read((D2 != D).any().item))
             D = D2
             if not changed:
                 break
@@ -1036,12 +1042,11 @@ def _rounds_closure(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor,
         row = min(r, r_cap)
         wslot[row] = torch.where(is_w, ws, wslot[row])
 
-        alive = bool(D.any())
+        alive = bool(host_read(D.any().item))
         unassigned = D
         r += 1
-    if stats is not None:
-        stats["rounds"] = stats.get("rounds", 0) + r
-        stats["closure_passes"] = stats.get("closure_passes", 0) + passes
+    count("rounds", r)
+    count("passes", passes)
 
     wit = valid_e & ((b.sp < 0) | (rnd > rnd[spx]))
     wit = torch.where(b.wseed >= 0, b.wseed == 1, wit) & valid_e
@@ -1163,7 +1168,7 @@ def _fame(cfg: ForkConfig, b: ForkBatch, la: torch.Tensor, det: torch.Tensor,
     two = torch.full((), FAME_FALSE, dtype=I8, device=dev)
     # steps past max_round vote nowhere (can_vote is False), so the loop
     # stops at the JAX package's d_max = max(max_round, 2), read once
-    d_max = max(int(max_round.item()), 2)
+    d_max = max(int(host_read(max_round.item)), 2)
     for d in range(2, d_max + 1):
         can_vote = (i_idx + d) <= max_round
         s0, m0 = min(d - 1, R), min(d, R)      # dynamic_slice's clamp
@@ -1266,34 +1271,45 @@ def fork_pipeline(cfg: ForkConfig, b: ForkBatch, ss=ss_counts,
     k, window=SsWindow(b.s_off, cfg.s_cap))``: ``ss_counts``, which
     launches the kernels on CUDA tensors, or, for the plain run, a
     function that passes the first four to ``ss_counts_plain``;
-    ``stats``, if given, receives the closure's round and pass counts
-    and the fd strategy.  ``axis`` (a ``ColumnShard`` over the branch
-    columns): one rank's part of the sharded fork step (module
-    docstring); its ``la``, ``fd`` are the rank's columns, ``det``,
-    ``wslot``, ``famous`` and the per-event outputs whole."""
+    ``stats``, if given, receives the closure's pass count
+    (``closure_passes``).  The stages are spans of ``fork.pipeline``
+    (``obs/spans.py``): ``fork.fd`` carries its ``mode``,
+    ``fork.rounds`` the closure's ``rounds`` and ``passes``.  ``axis``
+    (a ``ColumnShard`` over the branch columns): one rank's part of the
+    sharded fork step (module docstring); its ``la``, ``fd`` are the
+    rank's columns, ``det``, ``wslot``, ``famous`` and the per-event
+    outputs whole."""
     if axis is not None and (axis.lo % cfg.k or axis.hi % cfg.k):
         raise ValueError(f"branch columns [{axis.lo}, {axis.hi}) do not "
                          f"hold whole creators of k={cfg.k}")
-    la = _la_scan(cfg, b, axis)
-    det = _detect(cfg, b, la, axis)
-    first_det = _first_det(cfg, b, det, axis)
-    # the JAX package's static choice between the two fd strategies
-    if fd_reverse_scan_wins(b.sched.shape[0], cfg.e_cap, cfg.k):
-        fd = _fd_reverse(cfg, b, axis)
-        fd_mode = "reverse"
-    else:
-        fd = _fd_chains(cfg, b, la, axis)
-        fd_mode = "chains"
-    if stats is not None:
-        stats["fd"] = fd_mode
-    helper = _helper(cfg, b, fd, first_det)
-    rnd, wit, wslot, max_round = _rounds_closure(cfg, b, la, det, helper,
-                                                 ss=ss, stats=stats,
-                                                 axis=axis)
-    famous, lcr = _fame(cfg, b, la, det, helper, wslot, max_round, ss=ss,
-                        axis=axis)
-    rr, cts = _order(cfg, b, fd, first_det, wslot, famous, rnd, max_round,
-                     axis)
+    with stage("fork.pipeline"):
+        with stage("fork.la_scan"):
+            la = _la_scan(cfg, b, axis)
+        with stage("fork.detect"):
+            det = _detect(cfg, b, la, axis)
+        with stage("fork.first_det"):
+            first_det = _first_det(cfg, b, det, axis)
+        # the JAX package's static choice between the two fd strategies
+        if fd_reverse_scan_wins(b.sched.shape[0], cfg.e_cap, cfg.k):
+            with stage("fork.fd", mode="reverse"):
+                fd = _fd_reverse(cfg, b, axis)
+        else:
+            with stage("fork.fd", mode="chains"):
+                fd = _fd_chains(cfg, b, la, axis)
+        with stage("fork.helper"):
+            helper = _helper(cfg, b, fd, first_det)
+        with stage("fork.rounds") as st:
+            rnd, wit, wslot, max_round = _rounds_closure(
+                cfg, b, la, det, helper, ss=ss, axis=axis)
+        if stats is not None:
+            stats["closure_passes"] = (stats.get("closure_passes", 0)
+                                       + st.attrs["passes"])
+        with stage("fork.fame"):
+            famous, lcr = _fame(cfg, b, la, det, helper, wslot, max_round,
+                                ss=ss, axis=axis)
+        with stage("fork.order"):
+            rr, cts = _order(cfg, b, fd, first_det, wslot, famous, rnd,
+                             max_round, axis)
     return ForkOut(
         la=la, det=det, fd=fd, round=rnd, witness=wit, wslot=wslot,
         famous=famous, rr=rr, cts=cts, max_round=max_round, lcr=lcr,

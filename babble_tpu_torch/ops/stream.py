@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..obs import Registry
+from ..obs.spans import Span, host_read, stage
 from ..sim.arrays import build_schedule
 from .ingest import EventBatch
 from .state import (
@@ -144,33 +145,37 @@ class WideStream:
 
     # ------------------------------------------------------------------
 
-    def _tick(self, name: str, t0: float) -> None:
-        dt = time.perf_counter() - t0
-        self.timings[name] = self.timings.get(name, 0.0) + dt
-        self._m_stage.labels(name).observe(dt)
+    def _timed(self, name: str, st: Span) -> None:
+        """Feed a closed stage's wall time to ``timings[name]`` and the
+        per-stage histogram."""
+        self.timings[name] = self.timings.get(name, 0.0) + st.dur_s
+        self._m_stage.labels(name).observe(st.dur_s)
 
     @property
     def n_live(self) -> int:
-        return int(self.state.n_events.item())
+        return int(host_read(self.state.n_events.item))
 
     def ingest(self, batch: EventBatch, fd_slot_sched=None) -> None:
         """Coords phase for one mega-batch (parents are window rows).
         ``fd_slot_sched``: window-wide level schedule for the fd sweep
         (run_wide_coords docstring), required for exactness whenever
         earlier batches are still live."""
-        t0 = time.perf_counter()
-        if int(batch.k.item()) + self.n_live > self.cfg.e_cap:
-            raise ValueError(
-                f"batch of {int(batch.k.item())} events overflows the "
-                f"window ({self.n_live} live / {self.cfg.e_cap} cap) — "
-                "compact first or shrink the batch"
+        with stage("wide.ingest") as st:
+            k = int(host_read(batch.k.item))
+            if k + self.n_live > self.cfg.e_cap:
+                raise ValueError(
+                    f"batch of {k} events overflows the window "
+                    f"({self.n_live} live / {self.cfg.e_cap} cap) — "
+                    "compact first or shrink the batch"
+                )
+            self.state, self.la_blocks, self.fd_blocks = run_wide_coords(
+                self.cfg, self.state, batch, self.la_blocks,
+                self.fd_blocks, self.C, fd_slot_sched=fd_slot_sched,
+                shard=self.shard,
             )
-        self.state, self.la_blocks, self.fd_blocks = run_wide_coords(
-            self.cfg, self.state, batch, self.la_blocks, self.fd_blocks,
-            self.C, fd_slot_sched=fd_slot_sched, shard=self.shard,
-        )
-        _sync(self.state.sp)
-        self._tick("coords", t0)
+            with stage("wide.coords.wait"):
+                _sync(self.state.sp)
+        self._timed("coords", st)
 
     def consensus(self, final: bool = False) -> int:
         """Rounds -> fame -> order for the current window; returns the
@@ -179,41 +184,54 @@ class WideStream:
         ``final=True`` declares the stream complete: the witness-set
         finality gate (run_wide_fame ``complete``) lifts, so the last
         rounds decide exactly as the whole-DAG batch would."""
-        cfg, C = self.cfg, self.C
-        t0 = time.perf_counter()
-        if self.carry is None:
-            # empty carry: a fresh march that persists its table
-            self.carry = MarchCarry(
-                torch.full((cfg.r_cap + 1, cfg.n), INT32_MAX, dtype=I32,
-                           device=self.device),
-                torch.zeros((cfg.n,), dtype=I32, device=self.device),
-            )
-        self.state = run_wide_rounds(
-            cfg, self.state, self.la_blocks, self.fd_blocks, C,
-            self.stats, carry=self.carry, shard=self.shard,
-        )
-        max_round, r_off = (int(v) for v in torch.stack(
-            [self.state.max_round, self.state.r_off]).tolist())
-        if max_round - r_off >= cfg.r_cap - 1:
-            raise ValueError(
-                f"round window saturated (max_round {max_round}, r_off "
-                f"{r_off}, r_cap {cfg.r_cap}) — raise r_cap or compact "
-                "more often"
-            )
-        self._tick("rounds", t0)
+        with stage("wide.consensus"):
+            max_round = self._rounds()
+            with stage("wide.fame") as st:
+                lcr_prev = self.lcr
+                self.state = run_wide_fame(
+                    self.cfg, self.state, self.la_blocks, self.fd_blocks,
+                    self.C, self.stats, complete=final, shard=self.shard,
+                )
+                lcr_now = int(host_read(self.state.lcr.item))
+            self._timed("fame", st)
+            with stage("wide.order") as st:
+                fresh = self._order(lcr_prev, lcr_now, max_round)
+            self._timed("order", st)
+        return fresh
 
-        t0 = time.perf_counter()
-        lcr_prev = self.lcr
-        self.state = run_wide_fame(
-            cfg, self.state, self.la_blocks, self.fd_blocks, C,
-            self.stats, complete=final, shard=self.shard,
-        )
-        lcr_now = int(self.state.lcr.item())
-        self._tick("fame", t0)
+    def _rounds(self) -> int:
+        """The resumed frontier march (stage ``wide.rounds``); returns
+        max_round."""
+        cfg = self.cfg
+        with stage("wide.rounds") as st:
+            if self.carry is None:
+                # empty carry: a fresh march that persists its table
+                self.carry = MarchCarry(
+                    torch.full((cfg.r_cap + 1, cfg.n), INT32_MAX,
+                               dtype=I32, device=self.device),
+                    torch.zeros((cfg.n,), dtype=I32, device=self.device),
+                )
+            self.state = run_wide_rounds(
+                cfg, self.state, self.la_blocks, self.fd_blocks, self.C,
+                self.stats, carry=self.carry, shard=self.shard,
+            )
+            max_round, r_off = (int(v) for v in host_read(torch.stack(
+                [self.state.max_round, self.state.r_off]).tolist))
+            if max_round - r_off >= cfg.r_cap - 1:
+                raise ValueError(
+                    f"round window saturated (max_round {max_round}, "
+                    f"r_off {r_off}, r_cap {cfg.r_cap}) — raise r_cap or "
+                    "compact more often"
+                )
+        self._timed("rounds", st)
+        return max_round
 
-        t0 = time.perf_counter()
+    def _order(self, lcr_prev: int, lcr_now: int, max_round: int) -> int:
+        """Round received and timestamps for the rounds fame decided
+        since the last call, and the host's count of newly ordered
+        rows; returns that count."""
         self.state = run_wide_order(
-            cfg, self.state, self.la_blocks, self.fd_blocks, C,
+            self.cfg, self.state, self.la_blocks, self.fd_blocks, self.C,
             self.stats, r_lo_abs=lcr_prev + 1, r_hi_abs=lcr_now,
             shard=self.shard,
         )
@@ -222,19 +240,18 @@ class WideStream:
         # count newly ordered rows (window-local bookkeeping survives
         # compaction because _rr_seen shifts with the window)
         ne = self.n_live
-        rr = self.state.rr[:ne].cpu().numpy()
+        rr = host_read(self.state.rr[:ne].cpu).numpy()
         newly = (rr >= 0) & ~self._rr_seen[:ne]
         fresh = int(np.count_nonzero(newly))
         if fresh:
             self._rr_seen[:ne] |= rr >= 0
             self.ordered_total += fresh
             if self.record_ordered:
-                cts = self.state.cts[:ne].cpu().numpy()
+                cts = host_read(self.state.cts[:ne].cpu).numpy()
                 for s in np.nonzero(newly)[0]:
                     self.ordered[self.e_off + int(s)] = (
                         int(rr[s]), int(cts[s])
                     )
-        self._tick("order", t0)
         return fresh
 
     # ------------------------------------------------------------------
@@ -247,35 +264,46 @@ class WideStream:
         slot any future batch will reference as a parent;
         ``head_seqs[c]`` is creator c's final head seq over the whole
         stream (defaults to the current in-window heads)."""
+        with stage("wide.compact"):
+            cfg = self.cfg
+            ne = self.n_live
+            if ne == 0:
+                return 0
+            r_off = int(host_read(self.state.r_off.item))
+            new_r_off = max(r_off, self.lcr - self.round_margin)
+            rr = host_read(self.state.rr[:ne].cpu).numpy()
+            rnd = host_read(self.state.round[:ne].cpu).numpy()
+            seq = host_read(self.state.seq[:ne].cpu).numpy()
+            creator = host_read(self.state.creator[:ne].cpu).numpy()
+            s_off = host_read(self.state.s_off.cpu).numpy()
+            dr = max(0, new_r_off - r_off)
+
+            if head_seqs is None:
+                # absolute head seq per creator: cnt counts the whole
+                # history (compaction never decrements it)
+                head_seqs = host_read(
+                    self.state.cnt[: cfg.n].cpu).numpy() - 1
+            ok = (
+                (rr >= 0)
+                & (rnd < new_r_off)
+                & (np.arange(ne) + self.e_off < min_future_parent)
+                & (seq < head_seqs[np.clip(creator, 0, cfg.n - 1)]
+                   - self.seq_window)
+            )
+            k = int(np.argmin(ok)) if not ok.all() else ne
+            if k < compact_min and dr == 0:
+                return 0
+            with stage("wide.compact.evict") as st:
+                self._evict(k, ne, s_off, creator, dr)
+            self._timed("compact", st)
+            return k
+
+    def _evict(self, k: int, ne: int, s_off: np.ndarray,
+               creator: np.ndarray, dr: int) -> None:
+        """Drop the first ``k`` of the window's ``ne`` live rows and
+        ``dr`` rounds: rebase the state, the blocks and the march
+        carry."""
         cfg, C = self.cfg, self.C
-        ne = self.n_live
-        if ne == 0:
-            return 0
-        r_off = int(self.state.r_off.item())
-        new_r_off = max(r_off, self.lcr - self.round_margin)
-        rr = self.state.rr[:ne].cpu().numpy()
-        rnd = self.state.round[:ne].cpu().numpy()
-        seq = self.state.seq[:ne].cpu().numpy()
-        creator = self.state.creator[:ne].cpu().numpy()
-        s_off = self.state.s_off.cpu().numpy()
-        dr = max(0, new_r_off - r_off)
-
-        if head_seqs is None:
-            # absolute head seq per creator: cnt counts the whole
-            # history (compaction never decrements it)
-            head_seqs = self.state.cnt[: cfg.n].cpu().numpy() - 1
-        ok = (
-            (rr >= 0)
-            & (rnd < new_r_off)
-            & (np.arange(ne) + self.e_off < min_future_parent)
-            & (seq < head_seqs[np.clip(creator, 0, cfg.n - 1)]
-               - self.seq_window)
-        )
-        k = int(np.argmin(ok)) if not ok.all() else ne
-        if k < compact_min and dr == 0:
-            return 0
-        t0 = time.perf_counter()
-
         # per-creator seq shifts from the evicted slot prefix
         dcount = np.bincount(creator[:k], minlength=cfg.n + 1)
         new_s_off = (s_off + dcount[: cfg.n + 1].astype(np.int32)).astype(
@@ -285,10 +313,11 @@ class WideStream:
         assert int(ds_np.max(initial=0)) < int(cfg.fd_inf) - 1, \
             "per-compaction seq shift exceeds coordinate dtype headroom"
         dev = self.device
-        ds = torch.tensor(ds_np, device=dev)
+        ds = host_read(torch.tensor, ds_np, device=dev)
 
         self.state = compact_state(
-            cfg, self.state, k, torch.tensor(new_s_off, device=dev), dr,
+            cfg, self.state, k, host_read(torch.tensor, new_s_off,
+                                          device=dev), dr,
         )
         j = _jits(cfg, C)
         w = j["width"]
@@ -328,8 +357,6 @@ class WideStream:
         self.e_off += k
         self.evicted += k
         _sync(self.state.sp)
-        self._tick("compact", t0)
-        return k
 
 
 def _padded_schedule(levels: np.ndarray, fill: int) -> np.ndarray:
@@ -337,12 +364,13 @@ def _padded_schedule(levels: np.ndarray, fill: int) -> np.ndarray:
     to x64, width to pow2), as in JAX.  ``fill`` pads unused lanes (-1
     for batch schedules, e_cap-as-sentinel for direct slot
     schedules)."""
-    sched = build_schedule(levels - levels.min())
-    sched = sched[(sched >= 0).any(axis=1)]
-    t, bw = sched.shape
-    tp, bp = -(-t // 64) * 64, bucket(bw, 1)
-    out = np.full((tp, bp), fill, np.int32)
-    out[:t, :bw] = np.where(sched >= 0, sched, fill)
+    with stage("wide.schedule"):
+        sched = build_schedule(levels - levels.min())
+        sched = sched[(sched >= 0).any(axis=1)]
+        t, bw = sched.shape
+        tp, bp = -(-t // 64) * 64, bucket(bw, 1)
+        out = np.full((tp, bp), fill, np.int32)
+        out[:t, :bw] = np.where(sched >= 0, sched, fill)
     return out
 
 
@@ -356,7 +384,6 @@ def slice_batch(dag, a: int, b: int, e_off: int,
     parent is either in an earlier batch (window row < current fill) or
     at a strictly lower level (scheduled earlier)."""
     k = b - a
-    sched_p = _padded_schedule(dag.levels[a:b], -1)
     kpad = bucket(k)
 
     def pad1(x, fill, dtype):
@@ -371,19 +398,22 @@ def slice_batch(dag, a: int, b: int, e_off: int,
             raise ValueError("batch references an evicted parent slot")
         return pad1(q, -1, np.int32)
 
-    def dev(x):
-        return torch.tensor(x, device=device)
+    def dev(x, **kw):
+        # a copy from pageable host memory waits for the device's queue
+        return host_read(torch.tensor, x, device=device, **kw)
 
-    return EventBatch(
-        sp=dev(loc(dag.sp)),
-        op=dev(loc(dag.op)),
-        creator=dev(pad1(dag.creator[a:b], 0, np.int32)),
-        seq=dev(pad1(dag.seq[a:b], 0, np.int32)),
-        ts=dev(pad1(dag.ts[a:b], 0, np.int64)),
-        mbit=dev(pad1(dag.mbit[a:b], False, bool)),
-        k=torch.tensor(k, dtype=I32, device=device),
-        sched=dev(sched_p),
-    )
+    with stage("wide.slice_batch"):
+        sched_p = _padded_schedule(dag.levels[a:b], -1)
+        return EventBatch(
+            sp=dev(loc(dag.sp)),
+            op=dev(loc(dag.op)),
+            creator=dev(pad1(dag.creator[a:b], 0, np.int32)),
+            seq=dev(pad1(dag.seq[a:b], 0, np.int32)),
+            ts=dev(pad1(dag.ts[a:b], 0, np.int64)),
+            mbit=dev(pad1(dag.mbit[a:b], False, bool)),
+            k=dev(k, dtype=I32),
+            sched=dev(sched_p),
+        )
 
 
 def _past(stream: WideStream, late: bool) -> bool:
@@ -391,8 +421,9 @@ def _past(stream: WideStream, late: bool) -> bool:
     rank's own reading without a mesh)."""
     if stream.mesh is None:
         return late
-    flag = torch.tensor(int(late), dtype=I32, device=stream.device)
-    return bool(stream.mesh.world.max(flag).item())
+    flag = host_read(torch.tensor, int(late), dtype=I32,
+                     device=stream.device)
+    return bool(host_read(stream.mesh.world.max(flag).item))
 
 
 def stream_consensus(
@@ -462,7 +493,8 @@ def stream_consensus(
                 "shrink batches, evict more (seq_window), or raise s_cap"
             )
         # window-wide fd sweep schedule (all live rows after this batch)
-        fd_slot_sched = torch.tensor(
+        fd_slot_sched = host_read(
+            torch.tensor,
             _padded_schedule(dag.levels[stream.e_off: b], cfg.e_cap),
             device=stream.device,
         )
@@ -473,7 +505,7 @@ def stream_consensus(
             head_seqs=head_seqs,
             compact_min=compact_min,
         )
-        s_off_np[:] = stream.state.s_off[: cfg.n].cpu().numpy()
+        s_off_np[:] = host_read(stream.state.s_off[: cfg.n].cpu).numpy()
         bi += 1
         if log is not None:
             log(f"[stream] batch {bi}: +{b - a} events, ordered +{fresh} "

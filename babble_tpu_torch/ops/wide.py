@@ -68,12 +68,12 @@ along the blocks, its counts sum and its ``bad`` rows take the max.
 from __future__ import annotations
 
 import functools
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..obs.spans import host_read, stage
 from . import fame as fame_ops
 from . import ingest as ingest_ops
 from . import order as order_ops
@@ -125,7 +125,7 @@ def _use_onehot_partial(cfg: DagConfig) -> bool:
 
 def _sync(t: torch.Tensor) -> None:
     if t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+        host_read(torch.cuda.synchronize, t.device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -729,37 +729,43 @@ def run_wide_coords(cfg: DagConfig, state: DagState, batch: EventBatch,
     batch): the batch schedule is the whole window.  ``shard``: the
     rank's blocks of a mesh-sharded stacked form (module docstring)."""
     j = _jits(cfg, C)
-    state = j["write_batch"](state, batch)
-    base = state.n_events - batch.k
-    slot_sched = torch.where(batch.sched >= 0, base + batch.sched,
-                             cfg.e_cap)
+    with stage("wide.coords.write"):
+        state = j["write_batch"](state, batch)
+        base = state.n_events - batch.k
+        slot_sched = torch.where(batch.sched >= 0, base + batch.sched,
+                                 cfg.e_cap)
     if fd_slot_sched is None:
         fd_slot_sched = slot_sched
     w = j["width"]
     sp, op, creator, seq = state.sp, state.op, state.creator, state.seq
     s_off = state.s_off
-    if _is_stacked(la_blocks):
-        offs = _block_offs(C, w, shard)
-        la_blocks = j["la_scan_stacked"](sp, op, creator, seq, s_off,
-                                         la_blocks, slot_sched, offs)
-        fd_blocks = j["fd_scan_stacked"](sp, op, creator, seq, s_off,
-                                         batch.seq, batch.k,
-                                         state.n_events, fd_blocks,
-                                         fd_slot_sched, offs)
-    else:
-        la_pre = j["la_sched"](sp, op, creator, seq, s_off, slot_sched)
-        fd_pre = j["fd_sched"](sp, op, fd_slot_sched)
-        la_blocks = tuple(
-            j["la_block_scan"](sp, op, creator, seq, s_off, la_blocks[c],
-                               slot_sched, c * w, la_pre)
-            for c in range(C)
-        )
-        fd_blocks = tuple(
-            j["fd_block_scan"](sp, op, creator, seq, s_off, batch.seq,
-                               batch.k, state.n_events, fd_blocks[c],
-                               fd_slot_sched, c * w, fd_pre)
-            for c in range(C)
-        )
+    stacked = _is_stacked(la_blocks)
+    offs = _block_offs(C, w, shard) if stacked else None
+    with stage("wide.coords.la_scan"):
+        if stacked:
+            la_blocks = j["la_scan_stacked"](sp, op, creator, seq, s_off,
+                                             la_blocks, slot_sched, offs)
+        else:
+            la_pre = j["la_sched"](sp, op, creator, seq, s_off, slot_sched)
+            la_blocks = tuple(
+                j["la_block_scan"](sp, op, creator, seq, s_off,
+                                   la_blocks[c], slot_sched, c * w, la_pre)
+                for c in range(C)
+            )
+    with stage("wide.coords.fd_sweep"):
+        if stacked:
+            fd_blocks = j["fd_scan_stacked"](sp, op, creator, seq, s_off,
+                                             batch.seq, batch.k,
+                                             state.n_events, fd_blocks,
+                                             fd_slot_sched, offs)
+        else:
+            fd_pre = j["fd_sched"](sp, op, fd_slot_sched)
+            fd_blocks = tuple(
+                j["fd_block_scan"](sp, op, creator, seq, s_off, batch.seq,
+                                   batch.k, state.n_events, fd_blocks[c],
+                                   fd_slot_sched, c * w, fd_pre)
+                for c in range(C)
+            )
     state = j["coord_sent"](state)
     return state, la_blocks, fd_blocks
 
@@ -803,7 +809,8 @@ def run_wide_rounds(cfg: DagConfig, state: DagState, la_blocks,
         pos_table = carry.pos_table.clone()
         pos_table[0] = pos0
         cnt_prev = carry.cnt_prev
-        open_rows = j["march_open"](pos_table, cnt_prev).cpu().numpy()
+        open_rows = host_read(
+            j["march_open"](pos_table, cnt_prev).cpu).numpy()
         first_open = int(np.argmax(open_rows)) if open_rows.any() else 0
         r = max(0, first_open - 1)
     pos = pos_table[r].clone()
@@ -817,7 +824,7 @@ def run_wide_rounds(cfg: DagConfig, state: DagState, la_blocks,
         ws, valid_w = j["round_witnesses"](state, cnt, pos)
         fdw = _gather_all(j, C, fd_blocks, ws)
 
-        bisect_iters = max(1, int(span.item()).bit_length())
+        bisect_iters = max(1, int(host_read(span.item)).bit_length())
         for _ in range(bisect_iters):
             mid, xs = j["bisect_candidates"](state, lo, hi)
             law = _gather_all(j, C, la_blocks, xs)
@@ -845,7 +852,7 @@ def run_wide_rounds(cfg: DagConfig, state: DagState, la_blocks,
             cnt, pos, pos_table, r, s_star, found, inherit, frozen,
             prev_next,
         )
-        alive = bool(any_next.item())
+        alive = bool(host_read(any_next.item))
         r += 1
         steps += 1
 
@@ -875,11 +882,11 @@ def run_wide_fame(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
     w = j["width"]
     n = cfg.n
     offs = _block_offs(C, w, shard) if _is_stacked(la_blocks) else None
-    lcr, max_round, r_off = (int(v) for v in torch.stack(
-        [state.lcr, state.max_round, state.r_off]).tolist())
+    lcr, max_round, r_off = (int(v) for v in host_read(torch.stack(
+        [state.lcr, state.max_round, state.r_off]).tolist))
     hi = max_round
     if not complete:
-        hi = min(hi, int(j["head_round_min"](state).item()) + 1)
+        hi = min(hi, int(host_read(j["head_round_min"](state).item)) + 1)
     famous = state.famous.clone()
     for i_abs in range(max(lcr + 1, r_off), hi):
         i = i_abs - r_off
@@ -907,7 +914,8 @@ def run_wide_fame(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
                 dim=1,
             )[:, :n]
 
-        und_any = bool(((famous_i == FAME_UNDEFINED) & valid_i).any().item())
+        und_any = bool(host_read(
+            ((famous_i == FAME_UNDEFINED) & valid_i).any().item))
         d = 2
         while und_any and i_abs + d <= max_round:
             ws_j, valid_j = j["fame_wits"](state, i + d)
@@ -919,7 +927,7 @@ def run_wide_fame(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
             votes, famous_i, und = j["fame_tally"](
                 cnt_ab, valid_j, valid_p, valid_i, votes, famous_i, mb_j, d,
             )
-            und_any = bool(und.item())
+            und_any = bool(host_read(und.item))
             d += 1
         if stats is not None:
             # rounds-to-fame latency: the voting distance at which round
@@ -952,7 +960,7 @@ def run_wide_order(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
     j = _jits(cfg, C)
     w = j["width"]
     n, e1 = cfg.n, cfg.e_cap + 1
-    r_off = int(state.r_off.item())
+    r_off = int(host_read(state.r_off.item))
     lo_r = 0 if r_lo_abs is None else max(0, r_lo_abs - r_off)
     hi_r = cfg.r_cap if r_hi_abs is None else min(
         cfg.r_cap, r_hi_abs - r_off + 1
@@ -978,8 +986,8 @@ def run_wide_order(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
     i_of = torch.clamp(rr - state.r_off, 0, cfg.r_cap - 1)
 
     # only the slot range holding newly-received rows needs the median
-    n_lo, n_hi = (int(v) for v in torch.stack(
-        j["newly_range"](newly)).tolist())
+    n_lo, n_hi = (int(v) for v in host_read(torch.stack(
+        j["newly_range"](newly)).tolist))
     if n_hi <= n_lo:
         if stats is not None:   # accumulate-only: streaming reuses stats
             stats.setdefault("median_chunks", 0)
@@ -989,8 +997,8 @@ def run_wide_order(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
         return state._replace(rr=rr)
 
     tmin, tmax, div1000 = j["ts_range"](state)
-    span = int((tmax - tmin).item())
-    scale = 1000 if (bool(div1000.item())
+    span = int(host_read((tmax - tmin).item))
+    scale = 1000 if (bool(host_read(div1000.item))
                      and span // 1000 < (1 << 31) - 1
                      and span >= (1 << 31) - 1) else 1
     rel32 = span // scale < (1 << 31) - 1
@@ -1027,7 +1035,7 @@ def run_wide_order(cfg: DagConfig, state: DagState, la_blocks, fd_blocks,
                               scale, rel32)
         cts = j["write_rows"](cts, e0, upd)
         n_chunks += 1
-    bad = int(bad_total.item())
+    bad = int(host_read(bad_total.item))
     if bad:
         raise AssertionError(
             f"median read {bad} below-window first-descendants for "
@@ -1056,10 +1064,12 @@ def run_wide_pipeline(
     on the batch's device.
 
     ``timings``, if given, receives per-phase wall seconds, each phase
-    ended by a device synchronise.  ``assemble=False`` skips rebuilding
-    the full [E+1, N] la/fd from their blocks; the returned state then
-    has la/fd = None and only consensus-observable fields are
-    meaningful."""
+    ended by a device synchronise: the durations of the stages
+    ``wide.ingest`` (as "coords"), ``wide.rounds``, ``wide.fame`` and
+    ``wide.order`` inside ``wide.pipeline``.  ``assemble=False`` skips
+    rebuilding the full [E+1, N] la/fd from their blocks; the returned
+    state then has la/fd = None and only consensus-observable fields
+    are meaningful."""
     if fd_mode != "fast":
         raise ValueError("wide pipeline supports the 'fast' batch mode")
     C = n_blocks or block_count(cfg)
@@ -1068,20 +1078,17 @@ def run_wide_pipeline(
         stats["onehot_partials"] = _use_onehot_partial(cfg)
         stats["levels"] = int(batch.sched.shape[0])
 
-    def tick(name, t0):
-        if timings is not None:
-            timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
-
     dev = batch.sp.device
     if state is None:
         state = init_state(cfg, include_coords=False, device=dev)
-    if int(state.r_off.item()) != 0 or int(state.e_off.item()) != 0:
+    if (int(host_read(state.r_off.item)) != 0
+            or int(host_read(state.e_off.item)) != 0):
         raise ValueError(
             "run_wide_pipeline is the one-shot batch wrapper; drive "
             "compacted/windowed states through ops.stream.WideStream"
         )
     la_full, fd_full = state.la, state.fd
-    if la_full is not None and int(state.n_events.item()) > 0:
+    if la_full is not None and int(host_read(state.n_events.item)) > 0:
         la_blocks = _split_blocks(cfg, C, la_full, -1)
         fd_blocks = _split_blocks(cfg, C, fd_full, cfg.fd_inf)
     else:
@@ -1090,24 +1097,29 @@ def run_wide_pipeline(
     del la_full, fd_full
     _sync(state.sp)
 
-    t0 = time.perf_counter()
-    state, la_blocks, fd_blocks = run_wide_coords(
-        cfg, state, batch, la_blocks, fd_blocks, C
-    )
-    _sync(state.sp)
-    tick("coords", t0)
-    t0 = time.perf_counter()
-    state = run_wide_rounds(cfg, state, la_blocks, fd_blocks, C, stats)
-    _sync(state.sp)
-    tick("rounds", t0)
-    t0 = time.perf_counter()
-    state = run_wide_fame(cfg, state, la_blocks, fd_blocks, C, stats)
-    _sync(state.sp)
-    tick("fame", t0)
-    t0 = time.perf_counter()
-    state = run_wide_order(cfg, state, la_blocks, fd_blocks, C, stats)
-    _sync(state.sp)
-    tick("order", t0)
+    with stage("wide.pipeline"):
+        with stage("wide.ingest") as coords:
+            state, la_blocks, fd_blocks = run_wide_coords(
+                cfg, state, batch, la_blocks, fd_blocks, C
+            )
+            with stage("wide.coords.wait"):
+                _sync(state.sp)
+        with stage("wide.rounds") as rounds:
+            state = run_wide_rounds(cfg, state, la_blocks, fd_blocks, C,
+                                    stats)
+            _sync(state.sp)
+        with stage("wide.fame") as fame:
+            state = run_wide_fame(cfg, state, la_blocks, fd_blocks, C,
+                                  stats)
+            _sync(state.sp)
+        with stage("wide.order") as order:
+            state = run_wide_order(cfg, state, la_blocks, fd_blocks, C,
+                                   stats)
+            _sync(state.sp)
+    if timings is not None:
+        for name, st in (("coords", coords), ("rounds", rounds),
+                         ("fame", fame), ("order", order)):
+            timings[name] = timings.get(name, 0.0) + st.dur_s
     if assemble:
         state = state._replace(
             la=_assemble_blocks(cfg, la_blocks),

@@ -3407,6 +3407,14 @@ def phase_chaos_live(card: str, device="cuda") -> None:
                                  f"{text[-2000:]}")
 
 
+def last_stage(name: str) -> dict:
+    """The newest record of stage ``name`` in the process-wide stage
+    ring (``babble_tpu_torch/obs/spans.py``)."""
+    from babble_tpu_torch.obs.spans import STAGES
+
+    return next(s for s in reversed(STAGES.dump()) if s["name"] == name)
+
+
 def byz_summary(out, n_events: int) -> dict:
     """What ``BYZ_EXPECT`` holds of a ``ForkOut`` (the JAX package's or
     the port's): the counts bench.py checks and a SHA-256 over round,
@@ -3879,6 +3887,8 @@ def phase_byzantine(dev, card: str) -> dict:
     out = F.fork_pipeline(cfg, batch, stats=stats)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
+    fd_attrs = last_stage("fork.fd")["attrs"]
+    closure = last_stage("fork.rounds")["attrs"]
     launches = F.ss_counts.launches
     peak = torch.cuda.max_memory_allocated()
     if launches == 0 or la_walk.launches:
@@ -3900,8 +3910,8 @@ def phase_byzantine(dev, card: str) -> dict:
     print(f"[byz] (b) fork_pipeline {BYZ_FULL['n']} x {BYZ_FULL['e']}: "
           f"ordered {got['ordered']}, events detecting forks "
           f"{got['detecting']}, max_round {got['max_round']} (r_cap "
-          f"{cfg.r_cap}), lcr {got['lcr']}; fd {stats['fd']}; closure "
-          f"rounds {stats['rounds']}, closure passes "
+          f"{cfg.r_cap}), lcr {got['lcr']}; fd {fd_attrs['mode']}; closure "
+          f"rounds {closure['rounds']}, closure passes "
           f"{stats['closure_passes']}; fork_ss launches {launches}; first "
           f"run {first_ms:.1f} ms, warm {warm[0]:.1f} / {warm[1]:.1f} ms "
           f"({got['ordered'] / warm_ms * 1e3:,.0f} events ordered/s); "
