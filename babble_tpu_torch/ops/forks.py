@@ -55,12 +55,16 @@ what is gathered:
   counts over the rank's creators, with det, the la/helper rows and the
   int16 planes cut to them, then an all-reduce SUM.
 
-Device control: each ``lax.scan`` over the level schedule is a Python
-loop over the schedule rows, each ``while_loop`` a Python loop with one
-``.item()`` a pass, and the fame ``fori_loop`` runs to ``max_round``,
-read once.  Every gather of a possibly missing index goes through
-``sanitize`` or a clamp; every scatter of a padding lane lands on a
-sentinel row that ``set_sentinel`` restores.
+Device control: the two ``lax.scan``s over the level schedule that
+fill la and fd (``_la_scan``, ``_fd_reverse``) are one launch each of
+``csrc/fork_levels.cu`` on CUDA tensors (``level_scan``; on CPU
+tensors its plain twin ``level_scan_plain``, a Python loop over the
+schedule rows), the rounds' level scan (``_rounds_scan``, which the
+tests hold the closure to) a Python loop, each ``while_loop`` a Python
+loop with one ``.item()`` a pass, and the fame ``fori_loop`` runs to
+``max_round``, read once.  Every gather of a possibly missing index
+goes through ``sanitize`` or a clamp; every scatter of a padding lane
+lands on a sentinel row that ``set_sentinel`` restores.
 """
 
 from __future__ import annotations
@@ -779,6 +783,115 @@ def ss_counts_planes_plain(view: torch.Tensor, wit: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
+# the two level scans (la forward, fd reverse): kernel and plain twin
+
+
+def _check_level_args(table, b: ForkBatch, cfg: ForkConfig):
+    if not isinstance(table, torch.Tensor) or table.dim() != 2 \
+            or table.dtype != I32:
+        raise ValueError("level_scan: the table must be a 2-d int32 tensor")
+    if not table.is_contiguous():
+        raise ValueError("level_scan: the table must be contiguous")
+    e1 = cfg.e_cap + 1
+    if table.shape[0] != e1 or table.shape[1] > cfg.b:
+        raise ValueError(f"level_scan: table {tuple(table.shape)}, want "
+                         f"[{e1}, at most {cfg.b}]")
+    if b.sched.dim() != 2 or b.sched.dtype != I32 or b.sp.dtype != I32 \
+            or b.op.dtype != I32 or tuple(b.sp.shape) != (e1,) \
+            or tuple(b.op.shape) != (e1,):
+        raise ValueError(f"level_scan: sched must be int32 [T, Bt] and sp, "
+                         f"op int32 [{e1}]")
+    dev = table.device
+    if any(t.device != dev for t in (b.sched, b.sp, b.op)):
+        raise ValueError("level_scan: tensors on different devices")
+
+
+def level_scan(table: torch.Tensor, b: ForkBatch, cfg: ForkConfig,
+               reverse: bool) -> torch.Tensor:
+    """Both level scans of the pipeline, in place on ``table`` (int32
+    ``[E+1, Bl]``, contiguous, seeded by ``_own_rows``; Bl is every
+    branch column or a ``ColumnShard``'s range, since nothing in the
+    recurrence crosses columns):
+
+    - forward (``reverse=False``, la): the schedule rows in order,
+      ``table[x] = max(table[x], table[sp(x)], table[op(x)])`` for each
+      slot x of a row;
+    - reverse (fd): the rows deepest first, ``table[p] = min(table[p],
+      table[y])`` for each slot y of a row and each parent p of y.
+
+    Pad lanes and missing parents do nothing that survives the caller's
+    ``set_sentinel``: the plain twin folds the sentinel row into a slot
+    with a missing parent, the kernel skips the parent, so la's table
+    holds -1 there (as ``_own_rows`` leaves it).  The schedule is by
+    level: no slot of a row is a parent of another slot of that row.
+    On CUDA tensors this launches ``csrc/fork_levels.cu`` once on the
+    current stream, counted in
+    ``level_scan.launches`` (an empty schedule launches nothing), and
+    reads nothing back; on CPU tensors it runs the plain twin
+    ``level_scan_plain``.  Returns ``table``."""
+    _check_level_args(table, b, cfg)
+    dev = table.device
+    if dev.type == "cpu":
+        return level_scan_plain(table, b, cfg, reverse)
+    if dev.type != "cuda":
+        raise ValueError(f"fork_levels: the kernel needs CUDA tensors, got "
+                         f"{dev}")
+    t, bt = b.sched.shape
+    if t == 0 or bt == 0 or table.numel() == 0:
+        return table
+    sched, sp, op = b.sched.contiguous(), b.sp.contiguous(), b.op.contiguous()
+    fn = _fork_levels_lib().fork_levels_launch
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(table.data_ptr(), table.shape[0], table.shape[1],
+                sched.data_ptr(), t, bt, sp.data_ptr(), op.data_ptr(),
+                int(reverse), stream)
+    if rc != 0:
+        raise RuntimeError(f"fork_levels: kernel launch failed, cudaError_t "
+                           f"{rc}")
+    level_scan.launches += 1
+    return table
+
+
+level_scan.launches = 0
+
+
+def _fork_levels_lib() -> ctypes.CDLL:
+    """The built ``csrc/fork_levels.cu``, its C function declared."""
+    from .. import cuda_build
+
+    lib = cuda_build.load("fork_levels")
+    lib.fork_levels_launch.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+        + [ctypes.c_void_p])
+    lib.fork_levels_launch.restype = ctypes.c_int
+    return lib
+
+
+def level_scan_plain(table: torch.Tensor, b: ForkBatch, cfg: ForkConfig,
+                     reverse: bool) -> torch.Tensor:
+    """The kernel's plain twin, on the device of ``table``: the JAX
+    package's two ``lax.scan``s as Python loops over the schedule rows,
+    a few launches a row.  Pad lanes and missing parents go to the
+    sentinel row (la's stays -1; fd's the caller resets)."""
+    idx, spx, opx = _sched_rows(cfg, b)
+    if not reverse:
+        for t in range(idx.shape[0]):
+            rows = torch.maximum(table[idx[t]],
+                                 torch.maximum(table[spx[t]], table[opx[t]]))
+            table.index_copy_(0, idx[t], rows)
+        return table
+    B = table.shape[1]
+    for t in range(idx.shape[0] - 1, -1, -1):
+        rows = table[idx[t]]
+        tgt = torch.cat([spx[t], opx[t]])[:, None].expand(-1, B)
+        table.scatter_reduce_(0, tgt, torch.cat([rows, rows]), "amin",
+                              include_self=True)
+    return table
+
+
+# ----------------------------------------------------------------------
 # device phases
 
 
@@ -813,14 +926,10 @@ def _sched_rows(cfg: ForkConfig, b: ForkBatch):
 def _la_scan(cfg: ForkConfig, b: ForkBatch, axis=None) -> torch.Tensor:
     """la[x, br] = highest chain-(br) index among x's ancestors.  The own
     row seeds la (a slot is written by exactly one schedule step, after
-    its parents), and each step takes the max with the parents' rows;
-    pad lanes read and write the sentinel row, which stays -1."""
+    its parents), and ``level_scan`` takes each step's max with the
+    parents' rows; the sentinel row ends -1."""
     la = _own_rows(cfg, b, -1, axis)
-    idx, spx, opx = _sched_rows(cfg, b)
-    for t in range(idx.shape[0]):
-        rows = torch.maximum(la[idx[t]],
-                             torch.maximum(la[spx[t]], la[opx[t]]))
-        la.index_copy_(0, idx[t], rows)
+    level_scan(la, b, cfg, reverse=False)
     return set_sentinel(la, _e_row(cfg, la.device), -1)
 
 
@@ -865,17 +974,10 @@ def _first_det(cfg: ForkConfig, b: ForkBatch, det: torch.Tensor,
 def _fd_reverse(cfg: ForkConfig, b: ForkBatch, axis=None) -> torch.Tensor:
     """First-descendant fill by reverse level scan: walking levels
     deepest-first, an event's fd row is final before its parents absorb
-    it by scatter-min (several children may share a parent: ``amin``
-    with the old value included, which no write order changes); the own
-    contribution covers every chain containing the event."""
+    it by scatter-min (``level_scan``); the own contribution covers every
+    chain containing the event."""
     fd = _own_rows(cfg, b, INT32_MAX, axis)
-    idx, spx, opx = _sched_rows(cfg, b)
-    B = fd.shape[1]
-    for t in range(idx.shape[0] - 1, -1, -1):
-        rows = fd[idx[t]]
-        tgt = torch.cat([spx[t], opx[t]])[:, None].expand(-1, B)
-        fd.scatter_reduce_(0, tgt, torch.cat([rows, rows]), "amin",
-                           include_self=True)
+    level_scan(fd, b, cfg, reverse=True)
     return set_sentinel(fd, _e_row(cfg, fd.device), INT32_MAX)
 
 
@@ -1273,7 +1375,10 @@ def fork_pipeline(cfg: ForkConfig, b: ForkBatch, ss=ss_counts,
     function that passes the first four to ``ss_counts_plain``;
     ``stats``, if given, receives the closure's pass count
     (``closure_passes``).  The stages are spans of ``fork.pipeline``
-    (``obs/spans.py``): ``fork.fd`` carries its ``mode``,
+    (``obs/spans.py``): ``fork.la_scan`` and ``fork.fd`` carry
+    ``impl`` ("kernel" on CUDA tensors: ``level_scan``'s launch, so
+    the span times its enqueue only; "plain" on the CPU, and for fd in
+    mode "chains", which is tensor code), ``fork.fd`` its ``mode``,
     ``fork.rounds`` the closure's ``rounds`` and ``passes``.  ``axis``
     (a ``ColumnShard`` over the branch columns): one rank's part of the
     sharded fork step (module docstring); its ``la``, ``fd`` are the
@@ -1282,8 +1387,9 @@ def fork_pipeline(cfg: ForkConfig, b: ForkBatch, ss=ss_counts,
     if axis is not None and (axis.lo % cfg.k or axis.hi % cfg.k):
         raise ValueError(f"branch columns [{axis.lo}, {axis.hi}) do not "
                          f"hold whole creators of k={cfg.k}")
+    impl = "kernel" if b.sched.device.type == "cuda" else "plain"
     with stage("fork.pipeline"):
-        with stage("fork.la_scan"):
+        with stage("fork.la_scan", impl=impl):
             la = _la_scan(cfg, b, axis)
         with stage("fork.detect"):
             det = _detect(cfg, b, la, axis)
@@ -1291,10 +1397,10 @@ def fork_pipeline(cfg: ForkConfig, b: ForkBatch, ss=ss_counts,
             first_det = _first_det(cfg, b, det, axis)
         # the JAX package's static choice between the two fd strategies
         if fd_reverse_scan_wins(b.sched.shape[0], cfg.e_cap, cfg.k):
-            with stage("fork.fd", mode="reverse"):
+            with stage("fork.fd", mode="reverse", impl=impl):
                 fd = _fd_reverse(cfg, b, axis)
         else:
-            with stage("fork.fd", mode="chains"):
+            with stage("fork.fd", mode="chains", impl="plain"):
                 fd = _fd_chains(cfg, b, la, axis)
         with stage("fork.helper"):
             helper = _helper(cfg, b, fd, first_det)

@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
 1. device — print the card's name and power limit (nvidia-smi); no CUDA
    device is a failure.
 2. build  — compile every kernel of the main paths from ``csrc/``
-   (``la_walk.cu``, ``fork_ss.cu`` and ``ss_count.cu``, one nvcc per
-   source, all started together) and print ``-Xptxas -v``, then la_walk's registers and
+   (``la_walk.cu``, ``fork_ss.cu``, ``fork_levels.cu`` and
+   ``ss_count.cu``, one nvcc per source, all started together) and
+   print ``-Xptxas -v``, then la_walk's registers and
    shared memory as the runtime sees them (static staging plus the
    dynamic int16 column), and ss_count's and fork_ss's SASS
    (``cuobjdump -sass``; fork_ss's packed and int32 kernels at K = 2):
@@ -213,12 +214,15 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    drops counted there must be above 0, and every node must have booted
    on the card under the plan.  la_walk's
    count stays 0.
-11. byzantine — the fork-aware pair (``ops/forks.py``, its kernel
-   ``csrc/fork_ss.cu``, ``ForkHashgraph``, byzantine nodes).  (b) the
+11. byzantine — the fork-aware pair (``ops/forks.py``, its kernels
+   ``csrc/fork_ss.cu`` and ``csrc/fork_levels.cu``, ``ForkHashgraph``,
+   byzantine nodes).  (b) the
    BASELINE byzantine config, ``random_byzantine_fork_batch(1024,
    100_000, seed=11, fork_rate=0.02, r_cap=16)`` as bench.py builds it,
    through ``fork_pipeline`` on the card: the counts set to 0 just
-   before, fork_ss launched, la_walk not; bench's checks (events ordered
+   before, fork_ss launched, fork_levels twice (``impl`` "kernel" on the
+   ``fork.la_scan`` and ``fork.fd`` spans), la_walk not; bench's
+   checks (events ordered
    > 0, events detecting forks > 0, max_round < r_cap - 1); every
    ``ForkOut`` field equal to a second run with the plain twin
    (``ss_counts_plain``), bit for bit.  It prints the host build, the
@@ -247,7 +251,14 @@ Phases (any failure exits non-zero; no phase swallows an exception):
    ``ForkHashgraph`` on the card over ``random_byzantine_dag(
    **BYZ_ENGINE)`` equal to the JAX engine's commits
    (``BYZ_ENGINE_EXPECT``) and a checkpoint save and load of it,
-   digests equal.
+   digests equal.  (e), beside (b): fork_levels (``level_scan``) in
+   each direction against its plain twin ``level_scan_plain`` at the
+   cell's shape, exact and equal to (b)'s la and fd (so, with (b)'s
+   plain-twin run, the whole pipeline equals a run with no kernel),
+   timed warm and L2 cold by CUDA events around the launch alone, with
+   the bytes it allocates, the plain loop's ms and the source note's
+   bounds (bytes, and the rows' latency); after (a), every
+   ``LEVEL_CASES`` case in both directions, exact.
 12. wide — the wide-N engine (``ops/wide.py``, ``ops/stream.py``, its
    kernel ``csrc/ss_count.cu``, ``WideHashgraph``, ``Core(wide=True)``).
    (a) ss_count against its plain twin ``ss_counts_compare``, exact,
@@ -788,6 +799,24 @@ FORK_SS_CASES = [
     ("every creator detected", 1, 200, 140, 20, 2, dict(det_rate=1.0)),
     ("all-INF witness rows", 2, 150, 90, 11, 2, dict(inf_rate=1.0)),
     ("s_cap at the int16 edge", 1, 257, 131, 33, 2, dict(s_cap="edge")),
+]
+# (e) fork_levels (csrc/fork_levels.cu, ops/forks.py level_scan) against
+# its plain twin, la and fd, beside (b)'s cell-shape run: (name,
+# level_case options).  k 1-3 and an evicted window (s_off > 0) from
+# ForkHashgraph windows; schedules with pads among the lanes, missing
+# parents, rows split inside a level and rows wider than the kernel's
+# stage; a rank's column range (a ragged tile); no schedule rows
+LEVEL_CASES = [
+    ("k=1 honest", dict(kind="engine", k=1)),
+    ("k=2 byzantine", dict(kind="arrays")),
+    ("k=3 byzantine", dict(kind="engine", k=3)),
+    ("evicted window", dict(kind="evicted")),
+    ("pads and missing parents", dict(kind="synthetic", e=3000, width=8,
+                                      cols=40, seed=1)),
+    ("rows wider than a stage", dict(kind="synthetic", e=6000, width=4096,
+                                     cols=24, roots=400, fan=3000, seed=2)),
+    ("columns [6, 28)", dict(kind="arrays", lo=6, hi=28)),
+    ("empty schedule", dict(kind="arrays", rows=0)),
 ]
 
 # phase 12: the wide-N pipeline (ops/wide.py, ops/stream.py, the
@@ -3729,6 +3758,219 @@ def check_fork_ss(name: str, args, timed: bool = False) -> dict:
     return row
 
 
+def synthetic_levels(e: int, width: int, cols: int, roots: int = 1,
+                     fan: int = 0, seed: int = 0):
+    """A level schedule for ``level_scan`` over ``e`` events whose
+    parents are drawn at random (each missing one time in five; none for
+    the first ``roots``, and only among those for the next ``fan``, so
+    that level 1 is wide), each level cut into rows of at most ``width``
+    lanes at random positions, -1 elsewhere, and two rows of pads at the
+    end; ``e_cap`` leaves rows past the events.  Returns ``(cfg, sched,
+    sp, op)``, the arrays numpy int32, for ``cols`` branch columns."""
+    import numpy as np
+
+    from babble_tpu_torch.ops.forks import ForkConfig
+
+    rng = np.random.default_rng(seed)
+    e_cap = e + 7
+    sp = np.full(e_cap + 1, -1, np.int32)
+    op = np.full(e_cap + 1, -1, np.int32)
+    lev = np.zeros(e, np.int64)
+    for i in range(roots, e):
+        hi = roots if i < roots + fan else i
+        if rng.random() < 0.8:
+            sp[i] = rng.integers(max(0, hi - 64), hi)
+        if rng.random() < 0.8:
+            op[i] = rng.integers(0, hi)
+        lev[i] = 1 + max(lev[p] if p >= 0 else -1 for p in (sp[i], op[i]))
+    rows = []
+    for lv in range(int(lev.max()) + 1):
+        grp = rng.permutation(np.flatnonzero(lev == lv))
+        rows += [grp[j:j + width] for j in range(0, len(grp), width)]
+    sched = np.full((len(rows) + 2, width), -1, np.int32)
+    for r, grp in enumerate(rows):
+        sched[r, rng.permutation(width)[:len(grp)]] = grp
+    cfg = ForkConfig(n=-(-cols // 2), k=2, e_cap=e_cap, s_cap=8, r_cap=8)
+    return cfg, sched, sp, op
+
+
+def level_case(opts: dict, device="cpu"):
+    """One of ``LEVEL_CASES`` on ``device``: ``(cfg, batch, seeds)``,
+    ``seeds[reverse]`` the table ``level_scan`` starts from: ``_own_rows``
+    over the batch's branch columns ``[lo, hi)``, or, for a synthetic
+    schedule (a batch that holds only sched, sp and op), random values
+    with the sentinel row as ``_own_rows`` leaves it."""
+    import types
+
+    import torch
+
+    from babble_tpu_torch.consensus.fork_engine import ForkHashgraph
+    from babble_tpu_torch.ops import forks as F
+    from babble_tpu_torch.ops.state import INT32_MAX
+    from babble_tpu_torch.sim.arrays import random_byzantine_fork_arrays
+    from babble_tpu_torch.sim.generator import (
+        random_byzantine_dag, random_gossip_dag,
+    )
+
+    kind = opts["kind"]
+    if kind == "synthetic":
+        args = {k: v for k, v in opts.items() if k != "kind"}
+        cfg, sched, sp, op = synthetic_levels(**args)
+        tens = {f: torch.tensor(a, device=device)
+                for f, a in (("sched", sched), ("sp", sp), ("op", op))}
+        b = F.ForkBatch(**{f: tens.get(f) for f in F.ForkBatch._fields})
+        gen = torch.Generator().manual_seed(opts["e"])
+        shape = (cfg.e_cap + 1, args["cols"])
+        la = torch.randint(-1, 300, shape, generator=gen, dtype=torch.int32)
+        fd = torch.randint(0, 300, shape, generator=gen, dtype=torch.int32)
+        fd[torch.rand(shape, generator=gen) < 0.3] = INT32_MAX
+        la[-1], fd[-1] = -1, INT32_MAX
+        return cfg, b, {False: la.to(device), True: fd.to(device)}
+    if kind == "arrays":
+        small = {k: v for k, v in BYZ_SMALL.items() if k not in ("n", "e")}
+        cfg, arrays = random_byzantine_fork_arrays(BYZ_SMALL["n"],
+                                                   BYZ_SMALL["e"], **small)
+    else:
+        k = opts.get("k", 2)
+        if k == 1:
+            dag = random_gossip_dag(6, 300, seed=7)
+        elif kind == "evicted":
+            dag = random_byzantine_dag(6, 600, seed=11, fork_rate=0.05)
+        else:
+            dag = random_byzantine_dag(6, 600, seed=5, fork_rate=0.08,
+                                       forks_per_node=k - 1)
+        kw = dict(auto_compact=True, round_margin=1, seq_window=6,
+                  compact_min=16) if kind == "evicted" else {}
+        eng = ForkHashgraph(dag.participants, k=k, device="cpu", **kw)
+        step = 100 if kind == "evicted" else len(dag.events)
+        for i in range(0, len(dag.events), step):
+            for ev in dag.events[i:i + step]:
+                eng.insert_event(ev.clone())
+            eng.run_consensus()
+        cfg, _ = eng._run()
+        arrays = eng.dag.build_arrays(cfg)
+        if kind == "evicted" and not (arrays["s_off"] > 0).any():
+            raise AssertionError("the evicted case evicted nothing")
+    if "rows" in opts:
+        arrays["sched"] = arrays["sched"][:opts["rows"]]
+    b = F.fork_batch_from_numpy(arrays, device)
+    axis = types.SimpleNamespace(lo=opts.get("lo", 0),
+                                 hi=opts.get("hi", cfg.b))
+    return cfg, b, {False: F._own_rows(cfg, b, -1, axis),
+                    True: F._own_rows(cfg, b, INT32_MAX, axis)}
+
+
+def level_results(cfg, b, seed, reverse: bool):
+    """``level_scan`` and ``level_scan_plain`` from copies of ``seed``,
+    each with the sentinel row reset as the pipeline resets it, and the
+    launches the first took."""
+    from babble_tpu_torch.ops import forks as F
+    from babble_tpu_torch.ops.state import INT32_MAX, set_sentinel
+
+    fill = INT32_MAX if reverse else -1
+    e_row = F._e_row(cfg, seed.device)
+    before = F.level_scan.launches
+    got = F.level_scan(seed.clone(), b, cfg, reverse)
+    launched = F.level_scan.launches - before
+    want = F.level_scan_plain(seed.clone(), b, cfg, reverse)
+    return (set_sentinel(got, e_row, fill), set_sentinel(want, e_row, fill),
+            launched)
+
+
+def check_level_cases(dev) -> None:
+    """fork_levels against its plain twin on every ``LEVEL_CASES`` case,
+    both directions, on the card: exact, one launch a scan (none for an
+    empty schedule)."""
+    import torch
+
+    for name, opts in LEVEL_CASES:
+        cfg, b, seeds = level_case(opts, dev)
+        for reverse in (False, True):
+            got, want, launched = level_results(cfg, b, seeds[reverse],
+                                                reverse)
+            torch.cuda.synchronize()
+            expect = 1 if b.sched.shape[0] else 0
+            if launched != expect or not torch.equal(got, want):
+                raise AssertionError(
+                    f"fork_levels ({name}, {'fd' if reverse else 'la'}): "
+                    f"{launched} launches, "
+                    f"{int((got != want).sum())} entries differ")
+        print(f"[byz] (e) fork_levels {name}: schedule "
+              f"{tuple(b.sched.shape)}, table {tuple(seeds[False].shape)}; "
+              f"la and fd exact", flush=True)
+
+
+def time_level_scans(cfg, batch, out, card: str) -> dict:
+    """Phase 11(e) at the cell's shape: each direction of fork_levels
+    against its plain twin (exact, and equal to the pipeline run's la
+    and fd), timed by CUDA events around the launch alone (mean of 5
+    warm after a fresh seed copy, of 3 with L2 cold: a 256 MB scratch
+    write between the copy and the launch), with what it allocates, the
+    plain loop's ms (one run) and the bounds of the source note."""
+    import torch
+
+    from babble_tpu_torch.ops import forks as F
+
+    scratch = torch.empty(SCRATCH_BYTES, dtype=torch.uint8, device="cuda")
+    t, bt = batch.sched.shape
+    row = {}
+    for reverse, key in ((False, "la"), (True, "fd")):
+        seed = F._own_rows(cfg, batch,
+                           F.INT32_MAX if reverse else -1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, want, launched = level_results(cfg, batch, seed, reverse)
+        torch.cuda.synchronize()
+        both_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        F.level_scan_plain(seed.clone(), batch, cfg, reverse)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ref = out.fd if reverse else out.la
+        if launched != 1 or not torch.equal(got, want) \
+                or not torch.equal(got, ref):
+            raise AssertionError(f"fork_levels {key} at the cell's shape: "
+                                 f"{launched} launches, "
+                                 f"{int((got != want).sum())} entries "
+                                 f"differ from the plain loop")
+        work = torch.empty_like(seed)
+        marks = {"warm": [], "cold": []}
+        for kind, reps in (("warm", 5), ("cold", 3)):
+            for i in range(reps):
+                work.copy_(seed)
+                if kind == "cold":
+                    scratch.fill_(i & 0xFF)
+                a = torch.cuda.Event(enable_timing=True)
+                z = torch.cuda.Event(enable_timing=True)
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                a.record()
+                F.level_scan(work, batch, cfg, reverse)
+                z.record()
+                grew = torch.cuda.max_memory_allocated() - before
+                marks[kind].append((a, z))
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(z) for a, z in marks["warm"]) / 5
+        ms_cold = sum(a.elapsed_time(z) for a, z in marks["cold"]) / 3
+        nbytes = 2 * seed.numel() * 4
+        bound = nbytes / 3.35e12 * 1e3
+        row[key] = dict(ms=ms, ms_cold=ms_cold, plain_ms=plain_ms,
+                        bound_ms=bound, allocated=grew)
+        print(f"[byz] (e) fork_levels {key} at {tuple(seed.shape)}, "
+              f"schedule {t} x {bt}: exact against the plain loop and the "
+              f"pipeline's {key}; kernel {ms:.3f} ms warm, {ms_cold:.3f} ms "
+              f"L2 cold (CUDA events, means of 5 and 3), "
+              f"{ms / t * 1e3:.3f} us a schedule row; allocates {grew} B; "
+              f"bytes bound {bound:.3f} ms ({nbytes / 1e9:.2f} GB in and "
+              f"out at 3.35 TB/s), latency floor {t * 0.3e-3:.2f}-"
+              f"{t * 0.6e-3:.2f} ms ({t} dependent rows at 0.3-0.6 us, "
+              f"the source note's estimate); plain loop {plain_ms:.1f} ms "
+              f"(kernel and plain with the copies {both_ms:.1f} ms); "
+              f"{card}", flush=True)
+        del seed, work, got, want
+    return row
+
+
 def fork_ss_turns(other: str, card: str) -> dict:
     """fork_ss against another source of it (``other``, a former version
     of ``csrc/fork_ss.cu`` with the int32 C interface ``fork_ss_launch(la,
@@ -3856,8 +4098,9 @@ def byz_engine_round_trip(device: str, node_launches: int) -> None:
                              "engine")
 
 
-def phase_byzantine(dev, card: str) -> dict:
-    """Phase 11 (module docstring).  Returns fork_ss's JSON row."""
+def phase_byzantine(dev, card: str):
+    """Phase 11 (module docstring).  Returns fork_ss's and fork_levels'
+    JSON rows."""
     import torch
 
     from babble_tpu_torch.chaos import ScenarioRunner
@@ -3879,7 +4122,7 @@ def phase_byzantine(dev, card: str) -> dict:
     print(f"[byz] (b) host build {(t1 - t0) * 1e3:.1f} ms (numpy over "
           f"{BYZ_FULL['e']} events), copy to the card {(t2 - t1) * 1e3:.1f} "
           f"ms; {cfg}, schedule {tuple(batch.sched.shape)}", flush=True)
-    F.ss_counts.launches = 0
+    F.ss_counts.launches = F.level_scan.launches = 0
     la_walk.launches = 0
     torch.cuda.reset_peak_memory_stats()
     stats = {}
@@ -3888,8 +4131,15 @@ def phase_byzantine(dev, card: str) -> dict:
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     fd_attrs = last_stage("fork.fd")["attrs"]
+    la_attrs = last_stage("fork.la_scan")["attrs"]
     closure = last_stage("fork.rounds")["attrs"]
     launches = F.ss_counts.launches
+    level_launches = F.level_scan.launches
+    if level_launches != 2 or la_attrs["impl"] != "kernel" \
+            or fd_attrs["impl"] != "kernel":
+        raise AssertionError(f"the byzantine pipeline launched fork_levels "
+                             f"{level_launches} times (la {la_attrs}, fd "
+                             f"{fd_attrs})")
     peak = torch.cuda.max_memory_allocated()
     if launches == 0 or la_walk.launches:
         raise AssertionError(f"the byzantine pipeline launched fork_ss "
@@ -3912,7 +4162,9 @@ def phase_byzantine(dev, card: str) -> dict:
           f"{got['detecting']}, max_round {got['max_round']} (r_cap "
           f"{cfg.r_cap}), lcr {got['lcr']}; fd {fd_attrs['mode']}; closure "
           f"rounds {closure['rounds']}, closure passes "
-          f"{stats['closure_passes']}; fork_ss launches {launches}; first "
+          f"{stats['closure_passes']}; fork_ss launches {launches}, "
+          f"fork_levels launches {level_launches} (impl la "
+          f"{la_attrs['impl']}, fd {fd_attrs['impl']}); first "
           f"run {first_ms:.1f} ms, warm {warm[0]:.1f} / {warm[1]:.1f} ms "
           f"({got['ordered'] / warm_ms * 1e3:,.0f} events ordered/s); "
           f"peak {peak / 2**30:.2f} GiB; {card}", flush=True)
@@ -3928,6 +4180,10 @@ def phase_byzantine(dev, card: str) -> dict:
     print(f"[byz] (b) the same pipeline with the plain twin: every ForkOut "
           f"field equal; {plain_run_ms:.1f} ms", flush=True)
     del plain
+    # (e) the level scans: their la and fd equal the plain loops', and
+    # every later stage is (b)'s plain-twin run on them, so the whole
+    # pipeline equals a run with no kernel at all
+    levels = time_level_scans(cfg, batch, out, card)
 
     # (a) the kernel against its twin: this run's two call shapes, one
     # small DAG and ragged tiles
@@ -3962,6 +4218,7 @@ def phase_byzantine(dev, card: str) -> dict:
         la, det, hw, s_off = (t.to(dev) for t in (la, det, hw, s_off))
         check_fork_ss(name, (la, det, hw, k, F.SsWindow(s_off, s_cap)))
         check_fork_ss(f"{name}, no window", (la, det, hw, k, None))
+    check_level_cases(dev)
 
     # (c) the mid-size batch against the JAX package's counts and digest
     mid = {k: v for k, v in BYZ_MID.items() if k not in ("n", "e")}
@@ -4032,6 +4289,16 @@ def phase_byzantine(dev, card: str) -> dict:
         "fame_plain_ms": row_f["plain_ms"],
         "fame_bound_ms": row_f["bound_ms"],
         "fame_bound_int32_ms": row_f["bound_int32_ms"],
+    }, {
+        "name": "fork_levels", "route": "cuda",
+        "source": "babble_tpu_torch/csrc/fork_levels.cu",
+        "replaces": "babble_tpu/ops/forks.py:476 _la_scan, :536 _fd_reverse",
+        "launches": level_launches, "ms": levels["la"]["ms"],
+        "ms_cold": levels["la"]["ms_cold"],
+        "plain_ms": levels["la"]["plain_ms"],
+        "bound_ms": levels["la"]["bound_ms"], "bound_by": "bytes",
+        "fd_ms": levels["fd"]["ms"], "fd_ms_cold": levels["fd"]["ms_cold"],
+        "fd_plain_ms": levels["fd"]["plain_ms"], "library_ms": None,
     }
 
 
@@ -5555,7 +5822,8 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["la_walk", "fork_ss", "ss_count"])
+    logs = cuda_build.build(["la_walk", "fork_ss", "fork_levels",
+                             "ss_count"])
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in logs.items():
         print(f"[build] {name}:\n{text.strip()}", flush=True)
@@ -5617,7 +5885,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s, (b) "
           f"{time.perf_counter() - t1:.1f} s)", flush=True)
 
-    byz_row = phase_byzantine(dev, card)
+    byz_row, levels_row = phase_byzantine(dev, card)
     wide_row = phase_wide(dev, card, base3)
     phase_prewarm(card, fleet_root=fleet_root)
     mesh = phase_mesh(dev, card)
@@ -5626,7 +5894,8 @@ def main() -> int:
         r["mesh_launches"] = mesh[kernel]
 
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": [row, byz_row, wide_row]}), flush=True)
+    print(json.dumps({"kernels": [row, byz_row, levels_row, wide_row]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
