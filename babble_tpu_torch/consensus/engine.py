@@ -30,6 +30,13 @@ re-shapes (``apply_epoch_transition``: a join appends a participant
 column, a leave retires one) and re-decides them under the new peer
 set.  ``membership_log`` is the chain of custody a joiner verifies.
 
+Stage spans (``obs/spans.py``): each ``run_consensus_timed`` is one
+``live.flush`` stage (attrs ``path``, ``k``, ``W``, ``F``) over
+``live.build_batch``, ``live.ingest``, ``live.fame``, ``live.order``,
+``live.sync`` (the first read after the queued device work) and
+``live.collect`` (with ``live.compact``); every device read and upload
+goes through ``host_read``.
+
 AOT prewarm (``ops/aot.py``): ``_aot`` holds the live-flush keys warmed
 at boot, and with ``_aot_dir`` set each key the engine flushes is
 recorded in the shape manifest.  Entry points run on ``device`` ("cuda"
@@ -49,6 +56,7 @@ from ..common import OffsetList
 from ..core.dag import HostDag
 from ..core.event import Event, WireEvent
 from ..membership.transition import MEMBERSHIP_MAGIC, parse_membership_tx
+from ..obs.spans import host_read, stage
 from ..ops import aot as aot_ops
 from ..ops import fame as fame_ops
 from ..ops import flush as flush_ops
@@ -128,6 +136,8 @@ class TorchHashgraph:
     last_flush_bytes: Optional[dict] = None
     phase_probe = False
     _last_phase_timings: Optional[dict] = None
+    #: (W, F) of the last latency flush, None after a throughput pass
+    _flush_wf: Optional[Tuple[int, int]] = None
     inactive_rounds: Optional[int] = None
     _evicted_creators_cache = 0
     epoch = 0
@@ -270,7 +280,7 @@ class TorchHashgraph:
     @property
     def last_consensus_round(self) -> Optional[int]:
         self.flush()
-        lcr = int(self.state.lcr)
+        lcr = int(host_read(self.state.lcr.item))
         self._lcr_cache = lcr
         return None if lcr < 0 else lcr
 
@@ -336,15 +346,16 @@ class TorchHashgraph:
             return
         self._check_narrow_seq_range()
         batch, fd_mode = self.build_batch()
-        self.state = ingest_ops.ingest_impl(self.cfg, self.state, fd_mode,
-                                            batch)
-        self._view = {}
-        # round-capacity saturation: if the highest assigned round is at
-        # the capacity edge, witness-table writes may have clipped — grow
-        # the window and recompute the suspect suffix
-        self._max_round_cache = int(self.state.max_round)
-        if self._max_round_cache - self._r_off >= self.cfg.r_cap - 1:
-            self._repair_rounds()
+        with stage("live.ingest"):
+            self.state = ingest_ops.ingest_impl(self.cfg, self.state,
+                                                fd_mode, batch)
+            self._view = {}
+            # round-capacity saturation: if the highest assigned round is
+            # at the capacity edge, witness-table writes may have clipped
+            # — grow the window and recompute the suspect suffix
+            self._max_round_cache = int(host_read(self.state.max_round.item))
+            if self._max_round_cache - self._r_off >= self.cfg.r_cap - 1:
+                self._repair_rounds()
 
     def _repair_rounds(self) -> None:
         """Double r_cap and recompute rounds for events whose assignment may
@@ -368,10 +379,11 @@ class TorchHashgraph:
             if len(sus):
                 self.state = ingest_ops.rescan_rounds_impl(
                     self.cfg, self.state,
-                    torch.tensor(self._level_sched(sus), device=self.device),
+                    host_read(torch.tensor, self._level_sched(sus),
+                              device=self.device),
                 )
                 self._view = {}
-            self._max_round_cache = int(self.state.max_round)
+            self._max_round_cache = int(host_read(self.state.max_round.item))
             if self._max_round_cache - self._r_off < self.cfg.r_cap - 1:
                 return
 
@@ -379,46 +391,49 @@ class TorchHashgraph:
         """Drain pending host events into a padded EventBatch on the
         engine's device.  Returns (batch, fd_mode).  Every tensor is a
         copy: none shares memory with the host arrays."""
-        k = len(self.dag.pending)
-        self._ensure_capacity(k)
-        sp, op, creator, seq, ts, mbit, sched = self.dag.take_pending()
-        if self.cfg.ts32 and k:
-            # span guard for the int32 relative-timestamp median
-            lo, hi = int(ts.min()), int(ts.max())
-            self._ts_lo = lo if self._ts_lo is None else min(self._ts_lo, lo)
-            self._ts_hi = hi if self._ts_hi is None else max(self._ts_hi, hi)
-            if not ts32_ok(self._ts_lo, self._ts_hi):
-                raise OverflowError(
-                    f"ts32 engine exceeded the int32 timestamp span "
-                    f"({self._ts_hi - self._ts_lo} ns): rebuild with "
-                    "ts32=False (wall-clock fleets must keep i64)"
-                )
+        with stage("live.build_batch"):
+            k = len(self.dag.pending)
+            self._ensure_capacity(k)
+            sp, op, creator, seq, ts, mbit, sched = self.dag.take_pending()
+            if self.cfg.ts32 and k:
+                # span guard for the int32 relative-timestamp median
+                lo, hi = int(ts.min()), int(ts.max())
+                self._ts_lo = lo if self._ts_lo is None \
+                    else min(self._ts_lo, lo)
+                self._ts_hi = hi if self._ts_hi is None \
+                    else max(self._ts_hi, hi)
+                if not ts32_ok(self._ts_lo, self._ts_hi):
+                    raise OverflowError(
+                        f"ts32 engine exceeded the int32 timestamp span "
+                        f"({self._ts_hi - self._ts_lo} ns): rebuild with "
+                        "ts32=False (wall-clock fleets must keep i64)"
+                    )
 
-        kpad = bucket(k)
-        t, b = sched.shape
-        tpad, bpad = bucket(t, 1), bucket(b, 1)
-        dev = self.device
+            kpad = bucket(k)
+            t, b = sched.shape
+            tpad, bpad = bucket(t, 1), bucket(b, 1)
+            dev = self.device
 
-        def pad1(a, fill, dtype):
-            out = np.full(kpad, fill, dtype)
-            out[:k] = a
-            return torch.tensor(out, device=dev)
+            def pad1(a, fill, dtype):
+                out = np.full(kpad, fill, dtype)
+                out[:k] = a
+                return host_read(torch.tensor, out, device=dev)
 
-        sched_p = np.full((tpad, bpad), -1, np.int32)
-        sched_p[:t, :b] = sched
+            sched_p = np.full((tpad, bpad), -1, np.int32)
+            sched_p[:t, :b] = sched
 
-        batch = ingest_ops.EventBatch(
-            sp=pad1(sp, -1, np.int32),
-            op=pad1(op, -1, np.int32),
-            creator=pad1(creator, 0, np.int32),
-            seq=pad1(seq, 0, np.int32),
-            ts=pad1(ts, 0, np.int64),
-            mbit=pad1(mbit, False, bool),
-            k=torch.tensor(k, dtype=torch.int32, device=dev),
-            sched=torch.tensor(sched_p, device=dev),
-        )
-        fd_mode = "full" if k > _FD_FULL_THRESHOLD else "incremental"
-        return batch, fd_mode
+            batch = ingest_ops.EventBatch(
+                sp=pad1(sp, -1, np.int32),
+                op=pad1(op, -1, np.int32),
+                creator=pad1(creator, 0, np.int32),
+                seq=pad1(seq, 0, np.int32),
+                ts=pad1(ts, 0, np.int64),
+                mbit=pad1(mbit, False, bool),
+                k=host_read(torch.tensor, k, dtype=torch.int32, device=dev),
+                sched=host_read(torch.tensor, sched_p, device=dev),
+            )
+            fd_mode = "full" if k > _FD_FULL_THRESHOLD else "incremental"
+            return batch, fd_mode
 
     def _ensure_capacity(self, k_new: int) -> None:
         cfg = self.cfg
@@ -432,7 +447,7 @@ class TorchHashgraph:
         # undershoot is safe (flush repairs saturation)
         levels_new = len({self.dag.levels[s] for s in self.dag.pending})
         need_r = (
-            max(int(self.state.max_round) - self._r_off, 0)
+            max(int(host_read(self.state.max_round.item)) - self._r_off, 0)
             + 2
             + min(levels_new, max(8, levels_new // 4))
         )
@@ -460,16 +475,21 @@ class TorchHashgraph:
 
     def decide_fame(self) -> None:
         self.flush()
-        # batch_window=False: the live engine rolls windows
-        self.state = fame_ops.decide_fame_auto_impl(
-            self.cfg, self.state, False, self.finality_gate
-        )
-        self._view = {}
+        with stage("live.fame"):
+            # batch_window=False: the live engine rolls windows
+            self.state = fame_ops.decide_fame_auto_impl(
+                self.cfg, self.state, False, self.finality_gate
+            )
+            self._view = {}
 
     def find_order(self) -> List[Event]:
         self.flush()
-        self.state = order_ops.decide_order_impl(self.cfg, self.state)
-        self._view = {}
+        with stage("live.order"):
+            self.state = order_ops.decide_order_impl(self.cfg, self.state)
+            self._view = {}
+        with stage("live.sync"):
+            # the commit's first read waits on the queued device work
+            self._arr("rr")
         return self._collect_ordered()
 
     def _collect_ordered(self) -> List[Event]:
@@ -484,61 +504,66 @@ class TorchHashgraph:
         boundary B, events received in rounds > B are held (not
         committed, not marked received); they are re-decided under the
         new peer set once the epoch applies."""
-        rr = self._arr("rr")
-        cts = self._arr("cts")
-        base = self.dag.slot_base
-        ne = self.dag.n_events - base          # live rows
-        self._lcr_cache = int(self.state.lcr)
-        # reception-frontier mirror: first live row still undecided (a
-        # monotone lower bound for every later flush)
-        und = rr[:ne] < 0
-        self._frontier_cache = int(np.argmax(und)) if und.any() else int(ne)
-        got = np.nonzero(~und)[0]
-        if self._received and len(got):
-            seen = np.fromiter(self._received, np.int64, len(self._received))
-            got = got[~np.isin(got + base, seen)]
-        if not len(got):
+        with stage("live.collect"):
+            rr = self._arr("rr")
+            cts = self._arr("cts")
+            base = self.dag.slot_base
+            ne = self.dag.n_events - base          # live rows
+            self._lcr_cache = int(host_read(self.state.lcr.item))
+            # reception-frontier mirror: first live row still undecided (a
+            # monotone lower bound for every later flush)
+            und = rr[:ne] < 0
+            self._frontier_cache = (int(np.argmax(und)) if und.any()
+                                    else int(ne))
+            got = np.nonzero(~und)[0]
+            if self._received and len(got):
+                seen = np.fromiter(self._received, np.int64,
+                                   len(self._received))
+                got = got[~np.isin(got + base, seen)]
+            if not len(got):
+                self._maybe_apply_membership()
+                if self.auto_compact:
+                    with stage("live.compact"):
+                        self.maybe_compact()
+                return []
+
+            candidates: List[Event] = []
+            for s in got.tolist():
+                ev = self.dag.events[base + s]
+                ev.round_received = int(rr[s])
+                ev.consensus_timestamp = int(cts[s])
+                candidates.append(ev)
+
+            candidates = consensus_sort(candidates, self._round_prn)
+            new_events: List[Event] = []
+            for ev in candidates:
+                pend = self.pending_membership
+                if pend is not None and ev.round_received > pend["boundary"]:
+                    # held: re-received and committed by the next epoch
+                    continue
+                new_events.append(ev)
+                self._received.add(self.dag.slot_of[ev.hex()])
+                self.consensus.append(ev.hex())
+                self._digest.note(ev.hex())
+                self.consensus_transactions += len(ev.transactions)
+                self._maybe_schedule_membership(ev)
+            self._ordered_total += len(new_events)
+
+            lcr = int(host_read(self.state.lcr.item))
+            self._lcr_cache = lcr
+            if lcr >= 1:
+                rounds = self._arr("round")
+                self.last_committed_round_events = int(
+                    np.count_nonzero(rounds[:ne] == lcr - 1)
+                )
+
+            if self.commit_callback is not None and new_events:
+                self.commit_callback(new_events)
             self._maybe_apply_membership()
             if self.auto_compact:
-                self.maybe_compact()
-            return []
-
-        candidates: List[Event] = []
-        for s in got.tolist():
-            ev = self.dag.events[base + s]
-            ev.round_received = int(rr[s])
-            ev.consensus_timestamp = int(cts[s])
-            candidates.append(ev)
-
-        candidates = consensus_sort(candidates, self._round_prn)
-        new_events: List[Event] = []
-        for ev in candidates:
-            pend = self.pending_membership
-            if pend is not None and ev.round_received > pend["boundary"]:
-                # held: re-received and committed by the next epoch
-                continue
-            new_events.append(ev)
-            self._received.add(self.dag.slot_of[ev.hex()])
-            self.consensus.append(ev.hex())
-            self._digest.note(ev.hex())
-            self.consensus_transactions += len(ev.transactions)
-            self._maybe_schedule_membership(ev)
-        self._ordered_total += len(new_events)
-
-        lcr = int(self.state.lcr)
-        self._lcr_cache = lcr
-        if lcr >= 1:
-            rounds = self._arr("round")
-            self.last_committed_round_events = int(
-                np.count_nonzero(rounds[:ne] == lcr - 1)
-            )
-
-        if self.commit_callback is not None and new_events:
-            self.commit_callback(new_events)
-        self._maybe_apply_membership()
-        if self.auto_compact:
-            self.maybe_compact()
-        return new_events
+                with stage("live.compact"):
+                    self.maybe_compact()
+            return new_events
 
     def run_consensus(self) -> List[Event]:
         events, _ = self.run_consensus_timed()
@@ -549,8 +574,26 @@ class TorchHashgraph:
         surface (module docstring); ``last_kernel_class`` records the
         pick.  Each dispatch runs inside a ``record_function`` region
         (the JAX engine's TraceAnnotation names), and
-        ``last_flush_bytes`` carries the flush's traffic estimate."""
+        ``last_flush_bytes`` carries the flush's traffic estimate.  The
+        pass is one ``live.flush`` stage: ``path`` is ``latency``,
+        ``throughput``, or ``fallback`` where the latency flush finished
+        on the full-table phases; ``k`` the pending events; ``W`` and
+        ``F`` the rounds and event rows its fame and order covered."""
         k_pending = len(self.dag.pending)
+        self._flush_wf = None
+        with stage("live.flush", k=k_pending) as root:
+            events, out = self._run_consensus_timed(k_pending)
+            if self._flush_wf is None:
+                path, (w, f) = "throughput", (self.cfg.r_cap,
+                                              self.cfg.e_cap + 1)
+            else:
+                path = ("latency" if self.last_kernel_class == "latency"
+                        else "fallback")
+                w, f = self._flush_wf
+            root.attrs.update(path=path, W=w, F=f)
+        return events, out
+
+    def _run_consensus_timed(self, k_pending: int):
         t0 = time.perf_counter()
         if self._latency_ok():
             # _flush_live overwrites this with "throughput" when it
@@ -646,6 +689,7 @@ class TorchHashgraph:
         # sized after build_batch: its _ensure_capacity may have grown
         # e_cap, and bucket_f clamps against e1
         f = self._frontier_f()
+        self._flush_wf = (w, f)
         key = (w, f, self.finality_gate, batch.sp.shape[0]) \
             + tuple(batch.sched.shape)
         self._last_phase_timings = None
@@ -668,7 +712,9 @@ class TorchHashgraph:
         )
         self._view = {}
         lcr_pre = self._lcr_cache
-        self._max_round_cache = int(self.state.max_round)
+        with stage("live.sync"):
+            # the first read waits on the flush's queued device work
+            self._max_round_cache = int(host_read(self.state.max_round.item))
         if self._max_round_cache - self._r_off >= self.cfg.r_cap - 1:
             # the headroom check should make this unreachable; degrade to
             # the repairing throughput path rather than trust clipped rounds
@@ -802,7 +848,8 @@ class TorchHashgraph:
     def _maybe_apply_membership(self) -> None:
         if self.pending_membership is None:
             return
-        if int(self.state.lcr) >= self.pending_membership["boundary"]:
+        if int(host_read(self.state.lcr.item)) >= \
+                self.pending_membership["boundary"]:
             self.apply_epoch_transition()
 
     def apply_epoch_transition(self) -> None:
@@ -840,26 +887,26 @@ class TorchHashgraph:
                 retired=old_cfg.retired + (cid,)
             )
 
-        arrays = epoch_transition_arrays(
-            old_cfg, new_cfg, self.state, boundary
-        )
+        arrays = host_read(epoch_transition_arrays, old_cfg, new_cfg,
+                           self.state, boundary)
         t1 = time.perf_counter()
         self.cfg = new_cfg
-        self.state = state_from_numpy(new_cfg, DagState(**arrays),
-                                      device=self.device)
+        self.state = host_read(state_from_numpy, new_cfg,
+                               DagState(**arrays), device=self.device)
         self._view = {}
         self._aot = set()   # keys were warmed for the old config
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            host_read(torch.cuda.synchronize, self.device)
         t2 = time.perf_counter()
         if len(suspects):
             self.state = ingest_ops.rescan_rounds_impl(
                 self.cfg, self.state,
-                torch.tensor(self._level_sched(suspects), device=self.device),
+                host_read(torch.tensor, self._level_sched(suspects),
+                          device=self.device),
             )
             self._view = {}
-        self._max_round_cache = int(self.state.max_round)
-        self._lcr_cache = int(self.state.lcr)
+        self._max_round_cache = int(host_read(self.state.max_round.item))
+        self._lcr_cache = int(host_read(self.state.lcr.item))
         t3 = time.perf_counter()
         self.last_transition = {
             "wall_s": t3 - t0, "host_s": t1 - t0, "upload_s": t2 - t1,
@@ -940,7 +987,7 @@ class TorchHashgraph:
         evictable prefix)."""
         if self.dag.pending or self.pending_membership is not None:
             return 0
-        lcr = int(self.state.lcr)
+        lcr = int(host_read(self.state.lcr.item))
         new_r_off = lcr - self.round_margin
         if new_r_off <= 0:
             return 0
@@ -975,7 +1022,7 @@ class TorchHashgraph:
         new_s_off[: self.n] = [c.start for c in self.dag.chains]
         self.state = compact_op(
             self.cfg, self.state, k,
-            torch.tensor(new_s_off, device=self.device), dr,
+            host_read(torch.tensor, new_s_off, device=self.device), dr,
         )
         self._received = {g for g in self._received if g >= base + k}
         self._r_off += dr
@@ -1039,8 +1086,9 @@ class TorchHashgraph:
         Always a copy: on the CPU ``Tensor.numpy()`` shares memory, and
         the device ops write some state tensors in place."""
         if name not in self._view:
-            self._view[name] = getattr(self.state, name).detach().to(
-                "cpu", copy=True).numpy()
+            self._view[name] = host_read(
+                getattr(self.state, name).detach().to, "cpu",
+                copy=True).numpy()
         return self._view[name]
 
     def _slot(self, x: str) -> int:
@@ -1141,7 +1189,7 @@ class TorchHashgraph:
 
     def rounds(self) -> int:
         self.flush()
-        return int(self.state.max_round) + 1
+        return int(host_read(self.state.max_round.item)) + 1
 
     # ------------------------------------------------------------------
 

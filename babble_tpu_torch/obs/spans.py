@@ -24,7 +24,8 @@ Boundaries of the design:
   ``perf_counter``.
 
 Stages.  The device pipelines (``ops/stream.py``, ``ops/wide.py``,
-``ops/forks.py``) time their own stages with :func:`stage`, which
+``ops/forks.py``) and the live engine (``consensus/engine.py``,
+``ops/flush.py``) time their own stages with :func:`stage`, which
 records into the process-wide ring :data:`STAGES`, a tracer made with
 ``counters=True``.  A stage carries
 counters: :func:`count` adds to the innermost open stage, and
@@ -51,9 +52,12 @@ import time
 from collections import deque
 from typing import List, Optional
 
-#: capacity of the stage ring: a 51 s window of either benchmarked path
-#: holds at most ~300 calls of ~14 stages
-STAGE_CAPACITY = 16384
+#: capacity of the stage ring: a 51 s window holds at most ~300 calls
+#: of the stream or the fork pipeline (~14 stages each), or ~850
+#: flushes of the live engine (8 stages each, 11 where the latency
+#: flush falls back), measured on an H100; this holds the engine's at
+#: four times that rate with every flush falling back
+STAGE_CAPACITY = 65536
 
 
 class SpanTracer:

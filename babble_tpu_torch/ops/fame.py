@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.spans import host_read
 from .ss import ss_counts, ss_counts_compare
 from .state import (
     FAME_FALSE,
@@ -144,7 +145,8 @@ def decide_fame_impl(cfg: DagConfig, state: DagState,
 
     # JAX runs the diagonal as a fori_loop with a device-valued bound;
     # here the bound is read once with .item()
-    d_max = max(int((state.max_round - torch.clamp(state.lcr, min=-1)).item()), 2)
+    d_max = max(int(host_read(
+        (state.max_round - torch.clamp(state.lcr, min=-1)).item)), 2)
     votes = see_next
     famous = state.famous[:R, xl].clone()
     valid_x = valid_w[:, xl]
@@ -247,14 +249,14 @@ def decide_fame_block_impl(cfg: DagConfig, state: DagState,
         # passed may decide (int32 arithmetic, as in JAX)
         hi_abs = torch.minimum(hi_abs, head_round_min_math(cfg, state) + 1)
     hi = torch.clamp(hi_abs - state.r_off, 0, R)
-    lo, hi, max_round, r_off = (int(v) for v in torch.stack(
-        [lo, hi, state.max_round, state.r_off]).tolist())
+    lo, hi, max_round, r_off = (int(v) for v in host_read(torch.stack(
+        [lo, hi, state.max_round, state.r_off]).tolist))
 
     famous_tab = state.famous.clone()
 
     def undecided(famous_i, valid_i):
         und = ((famous_i == FAME_UNDEFINED) & valid_i).any()
-        return bool((und if axis is None else axis.max(und)).item())
+        return bool(host_read((und if axis is None else axis.max(und)).item))
 
     for i in range(lo, hi):
         i_abs = i + r_off

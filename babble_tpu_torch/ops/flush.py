@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
+from ..obs.spans import host_read, stage
 from .fame import F32, _lcr_candidates
 from .ingest import EventBatch, ingest_coords_impl, ingest_rounds_impl
 from .order import order_median_rows
@@ -282,13 +283,15 @@ def live_flush_impl(cfg: DagConfig, W: int, F: int, gate: bool,
     then windowed fame and order.  ``batch`` may be empty (k=0, the
     drain call when gossip stops): ingest is a no-op on padded lanes and
     fame/order still advance.  The ``record_function`` regions carry the
-    phase names into ``torch.profiler`` traces."""
-    with record_function("babble_ingest"):
+    phase names into ``torch.profiler`` traces; each phase is also a
+    stage (``live.ingest``, ``live.fame``, ``live.order``), which times
+    its launches: the flush reads nothing back."""
+    with record_function("babble_ingest"), stage("live.ingest"):
         state = _ingest_flush(cfg, state, batch)
     lcr_prev = state.lcr
-    with record_function("babble_fame"):
+    with record_function("babble_fame"), stage("live.fame"):
         state = fame_window_impl(cfg, W, state, gate)
-    with record_function("babble_order"):
+    with record_function("babble_order"), stage("live.order"):
         return order_window_impl(cfg, W, F, state, lcr_prev)
 
 
@@ -298,7 +301,7 @@ live_flush = live_flush_impl
 
 def _sync(state: DagState) -> None:
     if state.sp.is_cuda:
-        torch.cuda.synchronize(state.sp.device)
+        host_read(torch.cuda.synchronize, state.sp.device)
 
 
 def probed_flush(cfg: DagConfig, W: int, F: int, gate: bool,
@@ -309,15 +312,18 @@ def probed_flush(cfg: DagConfig, W: int, F: int, gate: bool,
     completion (the card is synchronised after each phase)."""
     _sync(state)
     t0 = time.perf_counter()
-    state = _ingest_flush(cfg, state, batch)
-    _sync(state)
+    with stage("live.ingest"):
+        state = _ingest_flush(cfg, state, batch)
+        _sync(state)
     t1 = time.perf_counter()
     lcr_prev = state.lcr
-    state = fame_window_impl(cfg, W, state, gate)
-    _sync(state)
+    with stage("live.fame"):
+        state = fame_window_impl(cfg, W, state, gate)
+        _sync(state)
     t2 = time.perf_counter()
-    state = order_window_impl(cfg, W, F, state, lcr_prev)
-    _sync(state)
+    with stage("live.order"):
+        state = order_window_impl(cfg, W, F, state, lcr_prev)
+        _sync(state)
     t3 = time.perf_counter()
     return state, {"ingest_s": t1 - t0, "fame_s": t2 - t1,
                    "order_s": t3 - t2}

@@ -33,7 +33,8 @@ flags over the axis.  Without one, nothing changes.
 
 Loops whose trip count JAX keeps on the device (``lax.while_loop`` with
 a traced bound) are Python loops here, with one ``.item()`` per trip to
-read the bound: see ``_rounds_frontier`` and ``_la_absorb``.
+read the bound: see ``_rounds_frontier`` and ``_la_absorb``.  Every
+read to the host goes through ``obs/spans.py host_read``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.spans import host_read
 from .pack import count_bits
 from .pallas_ingest import la_walk, walk_supported
 from .ss import ss_counts_compare
@@ -358,7 +360,7 @@ def _rounds_level_scan(state: DagState, cfg: DagConfig,
     n, e_cap, r_cap = cfg.n, cfg.e_cap, cfg.r_cap
     dev = state.sp.device
     # (a config with no retired column skips the mask and its host copy)
-    retired = torch.from_numpy(retired_mask(cfg)).to(dev) \
+    retired = host_read(torch.from_numpy(retired_mask(cfg)).to, dev) \
         if cfg.retired else None
     sp, op, creator = state.sp, state.op, state.creator
 
@@ -465,7 +467,7 @@ def _la_absorb(state: DagState, cfg: DagConfig) -> DagState:
     la, changed = state.la, True
     while changed:
         la2 = absorb(la)
-        changed = bool((la2 != la).any().item())
+        changed = bool(host_read((la2 != la).any().item))
         la = la2
     return state._replace(la=la)
 
@@ -601,7 +603,7 @@ def _rounds_frontier(state: DagState, cfg: DagConfig,
             state, cfg, r, pos, pos_table, axis
         )
         r += 1
-        alive = bool(any_next.item())
+        alive = bool(host_read(any_next.item))
     return frontier_finalize(state, cfg, pos_table)
 
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.spans import host_read
 from .state import (
     FAME_TRUE, FAME_UNDEFINED, INT32_MAX, INT64_MAX, DagConfig, DagState,
     I32, I64, sanitize,
@@ -108,7 +109,7 @@ def decide_order_impl(cfg: DagConfig, state: DagState,
     active = (decided & has_w & (i_abs <= state.max_round)
               & (i_abs <= state.lcr))
     rr = state.rr
-    for i in torch.nonzero(active).flatten().tolist():
+    for i in torch.nonzero(host_read(active.cpu)).flatten().tolist():
         rr = order_rr_round(cfg, state, tables, und, i, rr, axis)
     newly = und & (rr != -1)
 
